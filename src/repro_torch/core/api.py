@@ -1,0 +1,195 @@
+"""Functional estimator core: DirectLiNGAM fits as plain functions.
+
+The stateful ``DirectLiNGAM`` facade sits over the types here:
+
+  * :class:`FitConfig` -- frozen estimator settings.
+  * :class:`FitResult` -- one fit: order, adjacency, residual variances,
+    as tensors on the fit's device.
+
+``fit_fn(x, config)`` is the whole fit (ordering, adjacency,
+diagnostics) on ``x.device``: the CUDA kernel carries the pairwise
+moments on a card, the kernel's plain version on the CPU. The order is
+copied to the host once, by the caller that reads it.
+
+    from repro_torch.core import api
+    res = api.fit_fn(x, api.FitConfig())
+    res.order       # (d,) int64 causal order
+    res.adjacency   # (d, d) f32 connection strengths
+    res.resid_var   # (d,) f32 residual noise variances
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+from . import ordering, pruning
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    """Configuration of one DirectLiNGAM fit.
+
+    ``backend``: ``None`` (the CUDA kernel on a card, its plain version on
+    the CPU), ``"cuda"``, ``"blocked"`` or ``"ref"``.
+
+    ``compaction`` selects the ordering schedule:
+      * ``"none"``   -- the full masked scan (d identical steps).
+      * ``"staged"`` -- active-set compaction every stage
+                        (``ordering.compact_order_impl``): same order,
+                        about half the pair work.
+
+    ``prune_kwargs`` is stored as a sorted tuple of (key, value) pairs so
+    the config stays hashable; a dict is normalized on construction.
+    """
+
+    backend: Optional[str] = None
+    prune_method: str = "ols"
+    prune_threshold: float = 0.0
+    prune_kwargs: Tuple[Tuple[str, Any], ...] = ()
+    compaction: str = "none"
+    compaction_frac: float = 0.25
+    min_stage: int = 8
+
+    def __post_init__(self):
+        if isinstance(self.prune_kwargs, dict):
+            object.__setattr__(
+                self, "prune_kwargs", tuple(sorted(self.prune_kwargs.items()))
+            )
+        ops.check_backend(self.backend)
+        if self.compaction not in ("none", "staged"):
+            raise ValueError(f"unknown compaction: {self.compaction}")
+
+    @property
+    def prune_kwargs_dict(self) -> Dict[str, Any]:
+        return dict(self.prune_kwargs)
+
+
+@dataclasses.dataclass
+class FitResult:
+    """One fit, as tensors on the fit's device."""
+
+    order: torch.Tensor      # (d,) int64 -- position p holds the variable
+    adjacency: torch.Tensor  # (d, d) f32 -- B[i, j] = effect of x_j on x_i
+    resid_var: torch.Tensor  # (d,) f32 -- Var(x_i - B_i x) diagnostic
+
+    @classmethod
+    def from_numpy(cls, order, adjacency, resid_var, device="cpu"):
+        """A result from numpy arrays (e.g. another implementation's fit)."""
+        return cls(
+            order=torch.tensor(np.asarray(order), dtype=torch.long,
+                               device=device),
+            adjacency=torch.tensor(np.asarray(adjacency),
+                                   dtype=torch.float32, device=device),
+            resid_var=torch.tensor(np.asarray(resid_var),
+                                   dtype=torch.float32, device=device),
+        )
+
+    def to_numpy(self):
+        """(order, adjacency, resid_var) as numpy arrays on the host."""
+        return (
+            self.order.cpu().numpy(),
+            self.adjacency.cpu().numpy(),
+            self.resid_var.cpu().numpy(),
+        )
+
+
+def tf32_enabled() -> bool:
+    """Whether float32 matmuls on the card may run in TF32."""
+    matmul = torch.backends.cuda.matmul
+    precision = getattr(matmul, "fp32_precision", None)
+    if precision is not None:
+        return precision == "tf32"
+    return bool(matmul.allow_tf32)
+
+
+def _check_device(x):
+    if x.is_cuda and tf32_enabled():
+        # C = X^T X / m must be the exact ddof=0 correlation for the
+        # identity std(r_ij) = sqrt(1 - C_ij^2); TF32 keeps ~3 digits and
+        # can flip orders. PyTorch's default is full fp32.
+        raise RuntimeError(
+            "TF32 matmuls are enabled (torch.backends.cuda.matmul); the "
+            "fit needs full-fp32 correlations: turn TF32 off"
+        )
+
+
+def _order_for_config(x, config: FitConfig):
+    reducer = ordering.LocalReducer(backend=config.backend)
+    if config.compaction == "staged":
+        return ordering.compact_order_impl(
+            x, reducer, frac=config.compaction_frac,
+            min_stage=config.min_stage,
+        )
+    return ordering.masked_order_impl(x, reducer)
+
+
+def finish_fit(x, order, config: FitConfig) -> FitResult:
+    """Adjacency + residual diagnostics given the causal order."""
+    b = pruning.estimate_adjacency(
+        x,
+        order,
+        method=config.prune_method,
+        threshold=config.prune_threshold,
+        **config.prune_kwargs_dict,
+    )
+    xc = x - x.mean(dim=0, keepdim=True)
+    resid = xc - xc @ b.T
+    resid_var = (resid * resid).mean(dim=0)
+    return FitResult(order=order, adjacency=b, resid_var=resid_var)
+
+
+def fit_impl(x, config: FitConfig) -> FitResult:
+    """Ordering then pruning, on ``x.device``."""
+    x = x.float()
+    order = _order_for_config(x, config)
+    return finish_fit(x, order, config)
+
+
+def fit_fn(x, config: FitConfig = FitConfig()) -> FitResult:
+    """DirectLiNGAM fit: (m, d) tensor + config -> FitResult on x.device.
+
+    TF32 is off by default in PyTorch (``torch.backends.cuda.matmul``);
+    the fit raises if it has been turned on.
+    """
+    _check_device(x)
+    return fit_impl(x, config)
+
+
+_STATS_EPS = 1e-12
+
+
+def fit_from_stats(
+    x, mean, cov, config: FitConfig = FitConfig()
+) -> FitResult:
+    """DirectLiNGAM fit that reuses precomputed sufficient statistics.
+
+    ``mean``/``cov`` are the (d,) mean and (d, d) ddof=0 covariance of
+    ``x`` (e.g. from a rolling moment store). They replace every data
+    pass the fit can avoid: the initial standardization, the pruning
+    solves (from ``cov``), and the residual diagnostics
+    ``diag((I-B) cov (I-B)^T)``. Only the nonlinear ordering moments
+    still read the rows.
+    """
+    _check_device(x)
+    x = x.float()
+    mean = mean.float()
+    cov = cov.float()
+    var = torch.clamp(torch.diagonal(cov), min=_STATS_EPS)
+    x0 = (x - mean[None, :]) * torch.rsqrt(var)[None, :]
+    order = _order_for_config(x0, config)
+    b = pruning.estimate_adjacency_from_cov(
+        cov,
+        order,
+        method=config.prune_method,
+        threshold=config.prune_threshold,
+        **config.prune_kwargs_dict,
+    )
+    r = torch.eye(b.shape[0], dtype=b.dtype, device=b.device) - b
+    resid_var = torch.clamp(torch.einsum("ij,jk,ik->i", r, cov, r), min=0.0)
+    return FitResult(order=order, adjacency=b, resid_var=resid_var)

@@ -1,0 +1,214 @@
+"""Causal ordering (Algorithm 1 of the paper) on the local plan.
+
+The ordering loop is d identical masked steps over a fixed-shape (m, d)
+buffer:
+
+  step(X, active):
+    1. standardize active columns (ddof=0)
+    2. C = X_std^T X_std / m                        (one matmul)
+    3. (M1, M2) = pairwise residual moments         (CUDA kernel / torch)
+    4. entropies + MI differences -> k_list scores  (O(d^2) postprocess)
+    5. root = argmax_{active} k_list                (ties -> lowest index)
+    6. residualize: x_j <- x_j - (cov(x_j, x_root)/var(x_root)) x_root
+
+:func:`ordering_step` is the one implementation of the step; the
+:class:`LocalReducer` carries out its sample and pair reductions on one
+device. The root stays a device tensor throughout: no step reads a value
+back to the host, and the order is copied off the device once, at the
+end, by the caller.
+
+:func:`compact_order_impl` shrinks the buffer to the surviving columns
+in stages and returns the same order as :func:`masked_order_impl`. That
+needs every per-column quantity to come out the same at every buffer
+width. Scores of equally valid roots (independent exogenous variables)
+differ only at the level of fp32 rounding, so a reduction whose order
+depends on the width (torch's column sums, cuBLAS's product) would break
+ties differently in the two layouts. The reducer therefore sums over
+samples and pairs in float64 and rounds the result to float32, and the
+moment kernel's sums do not depend on the width.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+from . import measures
+
+_NEG_INF = -1e30
+EPS = 1e-12
+
+
+class LocalReducer:
+    """Single-device reduction plan.
+
+      * ``mean_over_samples(v) -> v.mean(0)``, accumulated in float64
+      * ``gram_mean(v) -> v^T v / m``, a float64 product rounded to float32
+        (never TF32)
+      * ``moment_rows(x_std, c) -> (M1, M2)`` pairwise residual moment
+        means for all (i, j)
+      * ``col_moments(x_std) -> (cm1, cm2)`` per-column nonlinear moments
+        for the H(x_i) entropies
+      * ``standardize(x) -> (x_std, c, mu, var)``
+    """
+
+    def __init__(self, backend: str = None):
+        ops.check_backend(backend)
+        self.backend = backend
+
+    def mean_over_samples(self, v):
+        return (v.sum(dim=0, dtype=torch.float64) / v.shape[0]).float()
+
+    def gram_mean(self, v):
+        v = v.double()
+        return ((v.T @ v) / v.shape[0]).float()
+
+    def standardize(self, x):
+        return step_standardize(x, self)
+
+    def moment_rows(self, x_std, c):
+        return ops.pairwise_moments(x_std, c, backend=self.backend)
+
+    def col_moments(self, x_std):
+        return measures.nonlinear_moments(x_std, axis=0)
+
+
+def step_standardize(x, reducer):
+    """ddof=0 standardization + correlation of the working data.
+
+    Two-pass variance (E[(x - mu)^2]): the one-pass E[x^2] - mu^2 form
+    cancels catastrophically in fp32 when column means dwarf the stds.
+    Returns (x_std, c, mu, var); the residual update reuses mu and var.
+    """
+    mu = reducer.mean_over_samples(x)
+    xc = x - mu[None, :]
+    var = torch.clamp(reducer.mean_over_samples(xc * xc), min=EPS)
+    x_std = xc * torch.rsqrt(var)[None, :]
+    c = reducer.gram_mean(x_std)
+    return x_std, c, mu, var
+
+
+def step_scores(cm1, cm2, m1, m2, active):
+    """k_list scores (float64) from the column / pairwise nonlinear
+    moments, with -1e30 at inactive entries."""
+    h_col = measures.entropy_from_moments(cm1, cm2)  # (d,)
+    h_res = measures.entropy_from_moments(m1, m2)  # (d, d), [i, j]
+
+    # diff_mi[i, j] = (H(x_j) + H(r_i<-j)) - (H(x_i) + H(r_j<-i))
+    diff = (h_col[None, :] + h_res) - (h_col[:, None] + h_res.T)
+
+    eye = torch.eye(active.shape[0], dtype=torch.bool, device=active.device)
+    pair_ok = active[:, None] & active[None, :] & ~eye
+    contrib = torch.where(pair_ok, torch.clamp(diff, max=0.0) ** 2, 0.0)
+    k_list = -contrib.sum(dim=1, dtype=torch.float64)
+    return torch.where(active, k_list, _NEG_INF)
+
+
+def ordering_step(x, active, reducer):
+    """One masked ordering step.
+
+    Args:
+      x:       (m, width) working data.
+      active:  (width,) bool mask of variables still to be ordered.
+      reducer: the plan's reducer (:class:`LocalReducer`).
+    Returns:
+      (x_new, active_new, root): residualized data, updated mask, and
+      the column chosen this step as a 0-d device tensor.
+    """
+    x_std, c, mu, var = reducer.standardize(x)
+    m1, m2 = reducer.moment_rows(x_std, c)
+    cm1, cm2 = reducer.col_moments(x_std)
+    k_list = step_scores(cm1, cm2, m1, m2, active)
+    root = torch.argmax(k_list)  # first maximum, as jnp.argmax
+    sel = root.view(1)
+
+    # Residualize every other active column on the root column of the
+    # unstandardized working data (two-pass covariance, as above).
+    xr = x.index_select(1, sel)  # (m, 1)
+    cov = reducer.mean_over_samples((x - mu[None, :]) * (xr - mu[sel]))
+    coef = cov / var[sel]
+    cols = torch.arange(x.shape[1], device=x.device)
+    not_root = cols != root
+    update = torch.where(active & not_root, coef, 0.0)
+    x_new = x - xr * update[None, :]
+    return x_new, active & not_root, root
+
+
+def masked_order_impl(x, reducer):
+    """Full masked scan: d identical steps at constant width. Returns the
+    order as a (d,) int64 tensor on ``x``'s device."""
+    d = x.shape[1]
+    x = x.float().contiguous()  # sample-major rows, as the kernel reads them
+    active = torch.ones(d, dtype=torch.bool, device=x.device)
+    order = []
+    for _ in range(d):
+        x, active, root = ordering_step(x, active, reducer)
+        order.append(root)
+    return torch.stack(order)
+
+
+def causal_order(x, *, backend=None):
+    """Full causal ordering of all d variables (local plan).
+
+    Returns ``order`` (d,) -- order[p] is the variable at causal position
+    p (order[0] = most exogenous).
+    """
+    return masked_order_impl(x, LocalReducer(backend=backend))
+
+
+def _stage_schedule(d: int, frac: float = 0.25, min_stage: int = 8):
+    """Static compaction schedule: [(width, n_steps), ...], sum n = d.
+
+    Each stage runs ``n_steps`` ordering steps at width ``width`` and then
+    gathers the surviving columns into a ``width - n_steps`` buffer.
+    Smaller ``frac`` compacts more aggressively: total pair work
+    approaches the sequential algorithm's d^3/3 instead of the masked
+    scan's d^3 (frac=0.25 => ~0.43 d^3).
+    """
+    if not 0.0 < frac <= 1.0:
+        raise ValueError(f"compaction frac must be in (0, 1], got {frac}")
+    if min_stage < 1:
+        raise ValueError(f"min_stage must be >= 1, got {min_stage}")
+    sched = []
+    d_cur = d
+    while d_cur > min_stage:
+        n = max(1, int(round(d_cur * frac)))
+        sched.append((d_cur, n))
+        d_cur -= n
+    if d_cur:
+        sched.append((d_cur, d_cur))
+    return tuple(sched)
+
+
+def compact_order_impl(x, reducer, *, frac=0.25, min_stage=8):
+    """Staged compaction: after each stage, gather the surviving columns
+    into a narrower buffer. Inactive columns never influence active ones,
+    so the order equals :func:`masked_order_impl` exactly."""
+    d = x.shape[1]
+    x = x.float().contiguous()
+    labels = torch.arange(d, device=x.device)  # current column -> original
+    active = torch.ones(d, dtype=torch.bool, device=x.device)
+    parts = []
+    for width, n_steps in _stage_schedule(d, frac, min_stage):
+        roots = []
+        for _ in range(n_steps):
+            x, active, root = ordering_step(x, active, reducer)
+            roots.append(root)
+        parts.append(labels[torch.stack(roots)])
+        keep = width - n_steps
+        if keep:
+            # Surviving columns in ascending order (inactive sort last).
+            cols = torch.arange(width, device=x.device)
+            idx = torch.argsort(torch.where(active, cols, width))[:keep]
+            x = x.index_select(1, idx)
+            labels = labels[idx]
+            active = torch.ones(keep, dtype=torch.bool, device=x.device)
+    return torch.cat(parts)
+
+
+def causal_order_compact(x, *, backend=None, frac=0.25, min_stage=8):
+    """Staged-compaction ordering (see :func:`compact_order_impl`)."""
+    return compact_order_impl(
+        x, LocalReducer(backend=backend), frac=frac, min_stage=min_stage
+    )
