@@ -49,7 +49,7 @@ ATOL_ADJ = 1e-5
 TEST_SHAPES = [(64, 4), (100, 5), (257, 10), (511, 16), (1000, 33),
                (2048, 64), (4096, 130), (777, 40)]
 N_SPLITS = (1, 3, 7)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (on-chip-measurement guide table)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 SFU_OPS_PER_CLOCK_PER_SM = 16
 SFU_OPS_PER_TERM = 3  # exp(-2|u|), log1p(.), exp(-u^2/2)
 
