@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,24 +7,42 @@ Imports only ``repro_torch`` (from ``src/``), ``torch`` and numpy. Phases,
 any failure of which exits non-zero:
 
   1. device: the card's name and power limit, the TF32 flag; build the
-     CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
-  2. the kernel against its plain-torch version on the card: the test
-     shapes at atol 2e-6, one full-size step (m = 1,000,000, d = 100)
-     against the plain version in float64, and two launches bit-identical;
-  3. mid-size fits (m = 20,000, d = 32): the kernel against the plain
+     CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
+     process per source, all at once;
+  2. kernel B1 (``pairwise_moments``) against its plain-torch version on
+     the card: the test shapes at atol 2e-6, one full-size step
+     (m = 1,000,000, d = 100) against the plain version in float64, and
+     two launches bit-identical;
+  3. kernel B2 (``pairwise_moment_sums_rows``) against its plain version:
+     the reference's padding-edge cells with and without a row offset, and
+     the rolling stream's shape (a 2048 x 487 window in 256-row slabs)
+     against float64; two launches bit-identical;
+  4. kernel B3 (``fused_moment_sums``) against its plain version in
+     float32 and bfloat16, at the edge cells and at (1e6, 100) against
+     float64, and against B1 on the same standardized values; then its
+     entry point ``ops.fused_moment_rows`` once in each type;
+  5. mid-size fits (m = 20,000, d = 32): the kernel against the plain
      ``blocked`` backend, both on the card: on a layered DAG, step by step
      up to ties between equally valid roots; on a chain DAG, whose order
      is unique, exactly;
-  4. the full-size fit, workload ``lingam-1m-100``, with compaction
+  6. the full-size fit, workload ``lingam-1m-100``, with compaction
      "none" and "staged": equal orders, consistent with the true DAG, the
      kernel launched once per ordering step;
-  5. one JSON line listing every ported kernel with its launches, error,
-     times and bound;
-  6. last line: {"ok": true, "device": {...}}.
+  7. the VarLiNGAM facade at ``varlingam-stocks-487`` (m = 4000,
+     d = 487): B1 once per step, walked step by step against ``blocked``;
+  8. the rolling stream ``varlingam-stream-487`` through a
+     ``StreamSession``: 12 chunks of 256 rows, 5 refits (4 after a
+     retraction), each held against the from-scratch window fit, one
+     walked against ``blocked``, compactions "staged" and "none" equal;
+     B2 launched once per slab and ordering step;
+  9. one JSON line listing every ported kernel with its launches on its
+     path, error, times and bound;
+ 10. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,6 +67,16 @@ ATOL_ADJ = 1e-5
 TEST_SHAPES = [(64, 4), (100, 5), (257, 10), (511, 16), (1000, 33),
                (2048, 64), (4096, 130), (777, 40)]
 N_SPLITS = (1, 3, 7)
+# Row-tile (tile, d, m) cells straddling the reference's block multiples
+# (tests/test_kernels.py _EDGE_CELLS). Sums are held per sample: the
+# reference's tolerances, 2e-6 * m for B2 and 4e-6 * m for B3.
+EDGE_CELLS = [(7, 9, 127), (8, 16, 129), (9, 15, 255), (8, 17, 257),
+              (16, 16, 128)]
+ATOL_ROWS = 2e-6
+ATOL_FUSED = 4e-6
+# Thetas and adjacency of a rolling refit against the from-scratch window
+# fit with the same order (tests/test_stream.py).
+ATOL_STREAM = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 SFU_OPS_PER_CLOCK_PER_SM = 16
 SFU_OPS_PER_TERM = 3  # exp(-2|u|), log1p(.), exp(-u^2/2)
@@ -67,47 +95,72 @@ def smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def offdiag_err(a, b):
-    d = a.shape[0]
-    mask = ~np.eye(d, dtype=bool)
+def offdiag_err(a, b, row0=0):
+    """Largest |a - b| off the diagonal of a (rows, d) row tile that
+    starts at row ``row0`` (the pair (i, row0 + i) is undefined)."""
+    rows, d = a.shape
+    mask = ~np.eye(rows, d, k=row0, dtype=bool)
     return float(np.max(np.abs(a.cpu().double().numpy()
                                - b.cpu().double().numpy())[mask]))
 
 
-def score_tolerance(cm1, cm2, m1, m2, active, atol):
+def moment_bound_ms(rows, d, m, n_bytes, sms, clock_mhz):
+    """(bound, by operations, by bytes) in ms for the moment sums of a
+    (rows, d) pair tile over m samples: SFU_OPS_PER_TERM special-function
+    ops per (pair, sample) over the SMs' rate, against ``n_bytes`` (each
+    input read once, each output written once) over the memory rate."""
+    ops_ms = SFU_OPS_PER_TERM * rows * d * m / (
+        sms * SFU_OPS_PER_CLOCK_PER_SM * clock_mhz * 1e6) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+
+
+def score_tolerance(cm1, cm2, m1, m2, active, atol, col_atol=0.0):
     """Per-variable bound on how far a k_list score can move when every
-    pairwise moment moves by at most ``atol`` (the column moments are
-    shared). H = H0 - K1 (m1 - g)^2 - K2 m2^2 moves by at most
+    pairwise moment moves by at most ``atol`` and every column moment by
+    at most ``col_atol`` (0: the column moments are shared).
+    H = H0 - K1 (m1 - g)^2 - K2 m2^2 moves by at most
     2 K1 |m1 - g| a + K1 a^2 + 2 K2 |m2| a + K2 a^2; a pair's MI
-    difference by the sum of its two residual entropies' moves; and a
-    score term min(0, diff)^2 by 2 |min(0, diff)| e + e^2."""
+    difference by the sum of its four entropies' moves; and a score term
+    min(0, diff)^2 by 2 |min(0, diff)| e + e^2."""
     import torch
 
     from repro_torch.core import measures
 
+    def entropy_move(g1, g2, a):
+        return (2 * measures.K1 * (g1 - measures.GAMMA).abs() * a
+                + measures.K1 * a**2 + 2 * measures.K2 * g2.abs() * a
+                + measures.K2 * a**2)
+
     m1, m2 = m1.double(), m2.double()
-    dh = (2 * measures.K1 * (m1 - measures.GAMMA).abs() * atol
-          + measures.K1 * atol**2 + 2 * measures.K2 * m2.abs() * atol
-          + measures.K2 * atol**2)
-    h_col = measures.entropy_from_moments(cm1.double(), cm2.double())
+    cm1, cm2 = cm1.double(), cm2.double()
+    dh = entropy_move(m1, m2, atol)
+    dc = entropy_move(cm1, cm2, col_atol)
+    h_col = measures.entropy_from_moments(cm1, cm2)
     h_res = measures.entropy_from_moments(m1, m2)
     diff = (h_col[None, :] + h_res) - (h_col[:, None] + h_res.T)
-    e = dh + dh.T
+    e = dh + dh.T + dc[None, :] + dc[:, None]
     eye = torch.eye(len(active), dtype=torch.bool, device=active.device)
     pair_ok = active[:, None] & active[None, :] & ~eye
     term = 2 * torch.clamp(diff, max=0.0).abs() * e + e * e
     return torch.where(pair_ok, term, 0.0).sum(dim=1)
 
 
-def walk_against_plain(x, kernel, plain, atol):
+def walk_against_plain(x, kernel, plain, atol, x_plain=None):
     """Replay the kernel fit's masked scan on ``x``. At every step the
     plain backend's moments must agree with the kernel's within ``atol``
     off the diagonal, and the plain backend's scores must rank the
     kernel's root best within the score tolerance that ``atol`` implies.
     Valid roots that are independent of each other score 0 up to fp32
     rounding, so two correct backends may break such ties differently.
-    Returns (order, worst moment error, number of tied steps, the largest
-    ratio of a tied step's score gap to its tolerance)."""
+
+    With ``x_plain`` (data that should agree with ``x`` to rounding, e.g.
+    a from-scratch window's residuals beside the rolling ones) the plain
+    side runs on ``x_plain``, residualized along the kernel's roots, and
+    each step's tolerance is the larger of ``atol`` and the moment
+    differences measured at that step, the column moments included.
+    Returns (order, worst moment difference, number of tied steps, the
+    largest ratio of a tied step's score gap to its tolerance)."""
     import torch
 
     from repro_torch.core import ordering
@@ -115,17 +168,32 @@ def walk_against_plain(x, kernel, plain, atol):
     d = x.shape[1]
     active = torch.ones(d, dtype=torch.bool, device=x.device)
     off = ~torch.eye(d, dtype=torch.bool, device=x.device)
+    xp = x_plain
     order, worst, tied, ratio = [], 0.0, 0, 0.0
     for step in range(d):
         x_std, c, _, _ = ordering.step_standardize(x, kernel)
         cm = kernel.col_moments(x_std)
         k1, k2 = kernel.moment_rows(x_std, c)
-        p1, p2 = plain.moment_rows(x_std, c)
-        worst = max(worst, float((k1 - p1)[off].abs().max()),
-                    float((k2 - p2)[off].abs().max()))
+        if xp is None:
+            cmp = cm
+            p1, p2 = plain.moment_rows(x_std, c)
+        else:
+            xp_std, cp, mu_p, var_p = ordering.step_standardize(xp, plain)
+            cmp = plain.col_moments(xp_std)
+            p1, p2 = plain.moment_rows(xp_std, cp)
+        err = max(float((k1 - p1)[off].abs().max()),
+                  float((k2 - p2)[off].abs().max()))
+        worst = max(worst, err)
         s_kernel = ordering.step_scores(*cm, k1, k2, active)
-        s_plain = ordering.step_scores(*cm, p1, p2, active)
-        tol = score_tolerance(*cm, p1, p2, active, atol)
+        s_plain = ordering.step_scores(*cmp, p1, p2, active)
+        if xp is None:
+            tol = score_tolerance(*cmp, p1, p2, active, atol)
+        else:
+            col_err = max(float((a - b)[active].abs().max())
+                          for a, b in zip(cm, cmp))
+            worst = max(worst, col_err)
+            tol = score_tolerance(*cmp, p1, p2, active, max(atol, err),
+                                  max(atol, col_err))
         root, best = int(s_kernel.argmax()), int(s_plain.argmax())
         if root != best:
             tied += 1
@@ -134,9 +202,12 @@ def walk_against_plain(x, kernel, plain, atol):
             if gap > float(tol[root] + tol[best]):
                 fail(f"step {step}: plain scores rank root {best} above the "
                      f"kernel's {root} by {gap:.3e}, beyond the tolerance")
-        x, active, r = ordering.ordering_step(x, active, kernel)
+        x, active_next, r = ordering.ordering_step(x, active, kernel)
         if int(r) != root:
             fail(f"step {step}: replay picked {int(r)}, expected {root}")
+        if xp is not None:
+            xp, _ = ordering.residualize(xp, active, r, mu_p, var_p, plain)
+        active = active_next
         order.append(root)
     return np.array(order), worst, tied, ratio
 
@@ -158,10 +229,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from repro_torch.configs.lingam_workloads import WORKLOADS
-    from repro_torch.core import DirectLiNGAM, api, ordering
-    from repro_torch.data.simulate import simulate_lingam
-    from repro_torch.kernels import build, ops, pairwise_stats
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs.lingam_workloads import (STREAM_WORKLOADS,
+                                                      WORKLOADS)
+    from repro_torch.core import DirectLiNGAM, VarLiNGAM, api, ordering
+    from repro_torch.data.simulate import simulate_lingam, simulate_var_stocks
+    from repro_torch.kernels import build, fused_stats, ops, pairwise_stats
+    from repro_torch.stream import StreamConfig, StreamSession, window
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -188,12 +263,18 @@ def main() -> int:
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"SMs: {sms}, max SM clock: {clock_mhz} MHz")
-    build.load("pairwise_moments")
-    info = build.build_info["pairwise_moments"]
-    print(f"build: pairwise_moments.cu in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    sources = ("pairwise_moments", "fused_moments")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        list(pool.map(build.load, sources))
+    print(f"build: {len(sources)} sources in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in sources:
+        info = build.build_info[name]
+        print(f"build: {name}.cu in {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # 2. kernel against its plain version on the card
     rng = np.random.default_rng(42)
@@ -218,7 +299,7 @@ def main() -> int:
     wl = WORKLOADS["lingam-1m-100"]
     gt = simulate_lingam(m=wl.m, d=wl.d, seed=0)
     x_full = torch.from_numpy(np.ascontiguousarray(gt.data)).to(dev)
-    x_std, c, _, _ = ordering.step_standardize(
+    x_std, c, mu_full, var_full = ordering.step_standardize(
         x_full, ordering.LocalReducer())
     m, d = x_std.shape
     a1, a2 = ops.pairwise_moments(x_std, c)
@@ -252,9 +333,178 @@ def main() -> int:
           f"(median of 10, CUDA events); plain version {plain_ms:.1f} ms; "
           f"bound {bound_ms:.3f} ms (special-function ops {ops_ms:.3f} ms, "
           f"bytes {bytes_ms:.3f} ms)")
+
+    # 3. kernel B2 (row-tile sums, scale 1) against its plain version:
+    # the reference's padding-edge cells, each at row offset 0 and > 0.
+    def tile_offsets(tile, d_e):
+        return [(row0, min(tile, d_e - row0))
+                for row0 in (0, max(1, d_e - tile))]
+
+    worst_rows = 0.0
+    for tile, d_e, m_e in EDGE_CELLS:
+        x = torch.from_numpy(rng.laplace(size=(m_e, d_e)).astype(np.float32))
+        xs = ops.standardize(x.to(dev))
+        c_e = ops.correlation(xs).contiguous()
+        for row0, rows in tile_offsets(tile, d_e):
+            k1, k2 = pairwise_stats.pairwise_moment_sums_rows(xs, c_e, row0,
+                                                              rows)
+            r1, r2 = pairwise_stats.pairwise_moment_sums_rows(xs, c_e, row0,
+                                                              rows)
+            p1, p2 = pairwise_stats.pairwise_moment_sums_plain(
+                xs, c_e, row0=row0, rows=rows)
+            torch.cuda.synchronize()
+            same = torch.equal(k1, r1) and torch.equal(k2, r2)
+            ok = bool(torch.isfinite(k1).all() and torch.isfinite(k2).all())
+            err = max(offdiag_err(k1, p1, row0),
+                      offdiag_err(k2, p2, row0)) / m_e
+            print(f"B2 vs plain (tile={rows}, d={d_e}, m={m_e}, "
+                  f"row0={row0}): max off-diagonal err {err:.3e} per sample "
+                  f"(tolerance {ATOL_ROWS}), two launches bit-identical "
+                  f"{same}, finite {ok}")
+            if not (same and ok) or err > ATOL_ROWS:
+                fail(f"B2 disagrees at ({rows}, {d_e}, {m_e}, {row0})")
+            worst_rows = max(worst_rows, err)
+    # The rolling stream's shape: a 2048-row window of 487 variables in
+    # 256-row slabs, one B2 launch per slab on a row view of X.
+    sw = STREAM_WORKLOADS["varlingam-stream-487"]
+    m_w, d_w = sw.chunk * sw.window_chunks, sw.d
+    xw = ops.standardize(torch.from_numpy(
+        rng.laplace(size=(m_w, d_w)).astype(np.float32)).to(dev))
+    cw = ops.correlation(xw).contiguous()
+    slab = xw[:sw.chunk]
+    s1, s2 = pairwise_stats.pairwise_moment_sums_rows(slab, cw, 0, d_w)
+    t1, t2 = pairwise_stats.pairwise_moment_sums_rows(slab, cw, 0, d_w)
+    q1, q2 = pairwise_stats.pairwise_moment_sums_plain(slab.double(),
+                                                       cw.double())
+    torch.cuda.synchronize()
+    same = torch.equal(s1, t1) and torch.equal(s2, t2)
+    rows_err = max(offdiag_err(s1, q1), offdiag_err(s2, q2))
+    before = pairwise_stats.rows_launches
+    w1, w2 = ops.pairwise_moment_sums_chunked(xw, cw, chunk=sw.chunk)
+    n_slabs = pairwise_stats.rows_launches - before
+    q1, q2 = pairwise_stats.pairwise_moment_sums_plain(xw.double(),
+                                                       cw.double())
+    torch.cuda.synchronize()
+    win_err = max(offdiag_err(w1, q1), offdiag_err(w2, q2))
+    print(f"B2 at the stream shape: one slab (m={sw.chunk}, d={d_w}) vs "
+          f"float64 plain: max off-diagonal err {rows_err:.3e} "
+          f"({rows_err / sw.chunk:.3e} per sample), two launches "
+          f"bit-identical {same}; the {m_w}-row window in {n_slabs} slabs "
+          f"vs float64 plain: {win_err:.3e} ({win_err / m_w:.3e} per "
+          f"sample; tolerance {ATOL_ROWS} per sample)")
+    if (not same or rows_err > ATOL_ROWS * sw.chunk
+            or win_err > ATOL_ROWS * m_w):
+        fail("B2 disagrees at the stream shape")
+    if n_slabs != m_w // sw.chunk:
+        fail(f"expected {m_w // sw.chunk} B2 launches, got {n_slabs}")
+    rows_ms = cuda_ms(
+        lambda: pairwise_stats.pairwise_moment_sums_rows(slab, cw, 0, d_w), 50)
+    rows_plain_ms = cuda_ms(
+        lambda: pairwise_stats.pairwise_moment_sums_plain(slab, cw), 5)
+    rows_bound = moment_bound_ms(
+        d_w, d_w, sw.chunk, 4 * (sw.chunk * d_w + 3 * d_w * d_w), sms,
+        clock_mhz)
+    print(f"B2 at (m={sw.chunk}, d={d_w}, rows={d_w}): {rows_ms:.4f} ms per "
+          f"launch (median of 50, CUDA events); plain version "
+          f"{rows_plain_ms:.2f} ms; bound {rows_bound[0]:.4f} ms "
+          f"(special-function ops {rows_bound[1]:.4f} ms, bytes "
+          f"{rows_bound[2]:.4f} ms)")
+    del xw, cw, slab, s1, s2, t1, t2, q1, q2, w1, w2
+
+    # 4. kernel B3 (fused standardize + sums from raw X) against its plain
+    # version, float32 and bfloat16, at the edge cells.
+    worst_fused = 0.0
+    for tile, d_e, m_e in EDGE_CELLS:
+        x = torch.from_numpy(
+            rng.laplace(size=(m_e, d_e)).astype(np.float32)).to(dev)
+        mu_e = x.mean(dim=0)
+        rstd_e = torch.rsqrt(((x - mu_e) ** 2).mean(dim=0))
+        c_e = ops.correlation((x - mu_e) * rstd_e).contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            xr = x.to(dtype)
+            for row0, rows in tile_offsets(tile, d_e):
+                k1, k2 = fused_stats.fused_moment_sums(xr, mu_e, rstd_e, c_e,
+                                                       row0, rows)
+                r1, r2 = fused_stats.fused_moment_sums(xr, mu_e, rstd_e, c_e,
+                                                       row0, rows)
+                p1, p2 = fused_stats.fused_moment_sums_plain(
+                    xr, mu_e, rstd_e, c_e, row0=row0, rows=rows)
+                torch.cuda.synchronize()
+                same = torch.equal(k1, r1) and torch.equal(k2, r2)
+                ok = bool(torch.isfinite(k1).all()
+                          and torch.isfinite(k2).all())
+                err = max(offdiag_err(k1, p1, row0),
+                          offdiag_err(k2, p2, row0)) / m_e
+                print(f"B3 vs plain ({str(dtype)[6:]}, tile={rows}, "
+                      f"d={d_e}, m={m_e}, row0={row0}): max off-diagonal "
+                      f"err {err:.3e} per sample (tolerance {ATOL_FUSED}), "
+                      f"two launches bit-identical {same}, finite {ok}")
+                if not (same and ok) or err > ATOL_FUSED:
+                    fail(f"B3 disagrees at ({dtype}, {rows}, {d_e}, {m_e})")
+                worst_fused = max(worst_fused, err)
+    # Full size: the raw lingam-1m-100 data with the step's own mu and
+    # 1/std, so that the fused standardization gives B1's input values.
+    rstd_full = torch.rsqrt(var_full)
+    x_bf16 = x_full.to(torch.bfloat16)
+    fused = {}
+    for label, xr in (("float32", x_full), ("bfloat16", x_bf16)):
+        f1, f2 = fused_stats.fused_moment_sums(xr, mu_full, rstd_full, c, 0, d)
+        g1, g2 = fused_stats.fused_moment_sums(xr, mu_full, rstd_full, c, 0, d)
+        torch.cuda.synchronize()
+        same = torch.equal(f1, g1) and torch.equal(f2, g2)
+        t0 = time.perf_counter()
+        q1, q2 = fused_stats.fused_moment_sums_plain(
+            xr.double(), mu_full.double(), rstd_full.double(), c.double())
+        torch.cuda.synchronize()
+        plain64_s = time.perf_counter() - t0
+        err = max(offdiag_err(f1, q1), offdiag_err(f2, q2))
+        ms = cuda_ms(
+            lambda: fused_stats.fused_moment_sums(xr, mu_full, rstd_full, c,
+                                                  0, d), 10)
+        bound = moment_bound_ms(
+            d, d, m, xr.element_size() * m * d + 4 * (2 * d + 3 * d * d),
+            sms, clock_mhz)
+        print(f"B3 at (m={m}, d={d}, tile={d}), {label} X: {ms:.3f} ms per "
+              f"launch (median of 10, CUDA events); bound {bound[0]:.3f} ms "
+              f"(special-function ops {bound[1]:.3f} ms, bytes "
+              f"{bound[2]:.3f} ms); vs float64 plain: max off-diagonal err "
+              f"{err:.3e} ({err / m:.3e} per sample, tolerance "
+              f"{ATOL_F64_FULL}), float64 plain {plain64_s:.1f} s; two "
+              f"launches bit-identical {same}")
+        if not same or err > ATOL_F64_FULL * m or not (
+                torch.isfinite(f1).all() and torch.isfinite(f2).all()):
+            fail(f"B3 ({label}) disagrees at full size")
+        fused[label] = {"s": (f1, f2), "err": err, "ms": ms, "bound": bound}
+        del q1, q2, g1, g2
+    inv_m = float(np.float32(1.0 / m))
+    f1, f2 = fused["float32"]["s"]
+    vs_b1 = max(offdiag_err(f1 * inv_m, a1), offdiag_err(f2 * inv_m, a2))
+    print(f"B3 (float32 X) x 1/m vs B1 on the standardized X: max "
+          f"off-diagonal err {vs_b1:.3e} (tolerance {ATOL_F32})")
+    if vs_b1 > ATOL_F32:
+        fail(f"B3 and B1 disagree on the same values: {vs_b1}")
+    fused_plain_ms = cuda_ms(
+        lambda: fused_stats.fused_moment_sums_plain(x_full, mu_full,
+                                                    rstd_full, c), 2)
+    print(f"B3 plain version at (m={m}, d={d}), float32: "
+          f"{fused_plain_ms:.1f} ms")
+    # B3's path: its entry point, once in each input type.
+    fused_stats.launches = 0
+    e32 = ops.fused_moment_rows(x_full, mu_full, rstd_full, c, 0, d)
+    e16 = ops.fused_moment_rows(x_bf16, mu_full, rstd_full, c, 0, d)
+    torch.cuda.synchronize()
+    fused_launches = fused_stats.launches
+    print(f"B3 entry point ops.fused_moment_rows (float32, bfloat16): "
+          f"{fused_launches} launches")
+    if fused_launches != 2:
+        fail(f"expected 2 B3 launches, got {fused_launches}")
+    if not (torch.equal(e32[0], f1)
+            and torch.equal(e16[0], fused["bfloat16"]["s"][0])):
+        fail("ops.fused_moment_rows differs from the kernel's own result")
+    del x_bf16, e32, e16, f1, f2, fused["float32"]["s"], fused["bfloat16"]["s"]
     del x_std, c, a1, a2, b1, b2
 
-    # 3. mid-size fit: kernel against the plain blocked backend. The
+    # 5. mid-size fit: kernel against the plain blocked backend. The
     # layered DAG has many independent, equally valid roots whose scores
     # are 0 up to fp32 rounding; where the two backends break such a tie
     # differently their orders part, so the step-by-step replay holds the
@@ -296,7 +546,7 @@ def main() -> int:
     if not same or adj_err > ATOL_ADJ:
         fail("kernel and blocked fits disagree on the chain DAG")
 
-    # 4. full-size fit: the main path
+    # 6. full-size fit: the main path
     fits = {}
     for compaction in ("none", "staged"):
         pairwise_stats.launches = 0
@@ -325,13 +575,212 @@ def main() -> int:
     ordering.causal_order(x_full).cpu()
     print(f"full-size ordering alone (compaction 'none'): "
           f"{time.perf_counter() - t0:.3f} s")
+    del x_full
 
-    # 5. kernels line
+    def forward_share(order, b_true):
+        """Share of the true edges (b[i, j] != 0: j -> i) that the order
+        puts forward, parent before child."""
+        pos = np.empty(len(order), int)
+        pos[np.asarray(order)] = np.arange(len(order))
+        src, dst = np.nonzero(b_true)
+        return float(np.mean(pos[dst] < pos[src])) if len(src) else 1.0
+
+    # 7. the VarLiNGAM facade at varlingam-stocks-487 (paper section 4.2)
+    wv = WORKLOADS["varlingam-stocks-487"]
+    t0 = time.perf_counter()
+    xv, b0_v, _ = simulate_var_stocks(m=wv.m, d=wv.d, seed=0)
+    print(f"simulate_var_stocks(m={wv.m}, d={wv.d}, seed=0) on the host: "
+          f"{time.perf_counter() - t0:.1f} s")
+    pairwise_stats.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    var_model = VarLiNGAM().fit(xv)
+    var_fit_s = time.perf_counter() - t0
+    var_launches = pairwise_stats.launches
+    thetas_ok = all(np.isfinite(t).all()
+                    for t in var_model.adjacency_matrices_)
+    print(f"VarLiNGAM fit {wv.name} (m={wv.m}, d={wv.d}, lags 1, compaction "
+          f"'none'): {var_fit_s:.3f} s, B1 launches {var_launches}, thetas "
+          f"finite {thetas_ok}, true edges forward "
+          f"{forward_share(var_model.causal_order_, b0_v):.3f}")
+    if var_launches != wv.d or not thetas_ok:
+        fail("the VarLiNGAM facade fit is wrong")
+    resid = torch.from_numpy(var_model.residuals_).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ordering.causal_order(resid).cpu()
+    print(f"VarLiNGAM residual ordering alone: "
+          f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    replay, var_err, tied, ratio = walk_against_plain(
+        resid, ordering.LocalReducer(),
+        ordering.LocalReducer(backend="blocked"), ATOL_F32)
+    print(f"VarLiNGAM replay against 'blocked' ({time.perf_counter() - t0:.1f}"
+          f" s): moments max off-diagonal err {var_err:.3e}, {tied} of "
+          f"{wv.d} steps broke a tie differently, largest score gap "
+          f"{ratio:.3f} of its tolerance")
+    if var_err > ATOL_F32 or not np.array_equal(replay,
+                                                var_model.causal_order_):
+        fail("the VarLiNGAM kernel fit disagrees with 'blocked'")
+    del resid, var_model
+
+    # 8. the rolling stream: 12 chunks through a StreamSession, a refit
+    # whenever one is due. The counts are read right after this loop.
+    sw = STREAM_WORKLOADS["varlingam-stream-487"]
+    n_chunks = sw.window_chunks + 4
+    t0 = time.perf_counter()
+    series, b0_s, _ = simulate_var_stocks(m=sw.chunk * n_chunks + 8, d=sw.d,
+                                          seed=0)
+    print(f"simulate_var_stocks(m={sw.chunk * n_chunks + 8}, d={sw.d}, "
+          f"seed=0) on the host: {time.perf_counter() - t0:.1f} s")
+    session = StreamSession(sw.name, StreamConfig(
+        d=sw.d, chunk=sw.chunk, window_chunks=sw.window_chunks, lags=sw.lags,
+        refit_every=sw.refit_every))
+    cfg = session.rolling.config
+    n_slabs = -(-sw.chunk * sw.window_chunks // cfg.moment_chunk)
+    refits, post_s = [], []
+    pairwise_stats.launches = 0
+    pairwise_stats.rows_launches = 0
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter()
+    for k in range(n_chunks):
+        t0 = time.perf_counter()
+        due = session.post(series[k * sw.chunk:(k + 1) * sw.chunk])
+        torch.cuda.synchronize()
+        post_s.append(time.perf_counter() - t0)
+        if due:
+            before = pairwise_stats.rows_launches
+            t0 = time.perf_counter()
+            delta = session.refit_now()
+            torch.cuda.synchronize()
+            refit_s = time.perf_counter() - t0
+            n_launch = pairwise_stats.rows_launches - before
+            # The refit's inputs again (no kernel runs in them), kept for
+            # the checks below and timed for the refit's split.
+            t0 = time.perf_counter()
+            plan = session.rolling.prepare_refit()
+            torch.cuda.synchronize()
+            refits.append({
+                "delta": delta, "fit": session.last_fit, "seconds": refit_s,
+                "launches": n_launch, "plan": plan,
+                "plan_s": time.perf_counter() - t0,
+                "blocks": list(session.rolling.ring),
+                "lead": session.rolling._lead_tail,
+            })
+    stream_s = time.perf_counter() - t_stream
+    stream_launches = pairwise_stats.rows_launches
+    stream_b1 = pairwise_stats.launches
+    for j, r in enumerate(refits):
+        print(f"stream refit {j}: {r['seconds']:.3f} s, B2 launches "
+              f"{r['launches']} ({sw.d} steps x {n_slabs} slabs of "
+              f"{cfg.moment_chunk} rows), {r['delta'].summary()}")
+    print(f"stream {sw.name}: {n_chunks} chunks, {len(refits)} refits in "
+          f"{stream_s:.3f} s; B2 launches {stream_launches}, B1 launches "
+          f"{stream_b1}")
+    if len(refits) != n_chunks - sw.window_chunks + 1:
+        fail(f"expected {n_chunks - sw.window_chunks + 1} refits, got "
+             f"{len(refits)}")
+    if stream_b1 or any(r["launches"] != sw.d * n_slabs for r in refits):
+        fail(f"expected {sw.d * n_slabs} B2 launches and no B1 launch per "
+             f"refit")
+    # Each refit against the from-scratch fit of the same window: equal
+    # orders (thetas then within ATOL_STREAM), or orders that part only
+    # at ties, which the walk below shows.
+    red = ordering.LocalReducer(backend=cfg.backend,
+                                moment_chunk=cfg.moment_chunk)
+    for j, r in enumerate(refits):
+        got = r["fit"]
+        direct = window.direct_window_fit(r["blocks"], r["lead"],
+                                          lags=sw.lags, config=cfg)
+        same = np.array_equal(got.result.order.cpu().numpy(),
+                              direct.result.order.cpu().numpy())
+        adj = float((got.result.adjacency - direct.result.adjacency)
+                    .abs().max())
+        th = max(float(np.abs(a - b).max())
+                 for a, b in zip(got.thetas, direct.thetas))
+        print(f"stream refit {j} vs from-scratch window fit: orders equal "
+              f"{same}, adjacency max diff {adj:.3e}, thetas max diff "
+              f"{th:.3e} (tolerance {ATOL_STREAM} with equal orders)")
+        if same and max(adj, th) > ATOL_STREAM:
+            fail(f"refit {j}: equal orders but estimates differ by "
+                 f"{max(adj, th)}")
+        if same and j != 1:
+            continue
+        # Replay the rolling order on the rolling residuals with the
+        # from-scratch ones on the plain side: always for refit 1 (the
+        # first after a retraction), and wherever the orders part.
+        dplan = window.direct_window_plan(r["blocks"], r["lead"],
+                                          lags=sw.lags)
+        x_roll = api.standardize_from_stats(
+            r["plan"].resid, r["plan"].resid_mean, r["plan"].resid_cov)
+        x_dir = api.standardize_from_stats(dplan.resid, dplan.resid_mean,
+                                           dplan.resid_cov)
+        replay, diff, tied, ratio = walk_against_plain(
+            x_roll, red, red, ATOL_F32, x_plain=x_dir)
+        print(f"stream refit {j} replayed against the from-scratch window: "
+              f"moments max diff {diff:.3e}, {tied} of {sw.d} steps broke a "
+              f"tie differently, largest score gap {ratio:.3f} of its "
+              f"tolerance")
+        if not np.array_equal(replay, got.result.order.cpu().numpy()):
+            fail(f"refit {j}: the replay does not reproduce the order")
+        del x_roll, x_dir, dplan
+    # The last window: its ordering walked against 'blocked', compaction
+    # "none" against the refit's "staged", and the refit's time split.
+    last = refits[-1]
+    plan = last["plan"]
+    x_roll = api.standardize_from_stats(plan.resid, plan.resid_mean,
+                                        plan.resid_cov)
+    t0 = time.perf_counter()
+    replay, blk_err, tied, ratio = walk_against_plain(
+        x_roll, red, ordering.LocalReducer(backend="blocked",
+                                           moment_chunk=cfg.moment_chunk),
+        ATOL_F32)
+    print(f"stream refit {len(refits) - 1} replay against 'blocked' "
+          f"({time.perf_counter() - t0:.1f} s): moments max off-diagonal err "
+          f"{blk_err:.3e}, {tied} of {sw.d} steps broke a tie differently, "
+          f"largest score gap {ratio:.3f} of its tolerance")
+    last_order = last["fit"].result.order.cpu().numpy()
+    if blk_err > ATOL_F32 or not np.array_equal(replay, last_order):
+        fail("the stream refit's kernel ordering disagrees with 'blocked'")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ordering.compact_order_impl(x_roll, red, frac=cfg.compaction_frac,
+                                min_stage=cfg.min_stage).cpu()
+    order_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    api.fit_from_stats(plan.resid, plan.resid_mean, plan.resid_cov,
+                       cfg).order.cpu()
+    from_stats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    masked = api.fit_from_stats(
+        plan.resid, plan.resid_mean, plan.resid_cov,
+        dataclasses.replace(cfg, compaction="none")).order.cpu().numpy()
+    masked_s = time.perf_counter() - t0
+    print(f"stream refit {len(refits) - 1}: compaction 'none' "
+          f"({masked_s:.3f} s) and 'staged' give one order "
+          f"{np.array_equal(masked, last_order)}")
+    if not np.array_equal(masked, last_order):
+        fail("compaction 'none' and 'staged' give different stream orders")
+    update_s = float(np.mean(post_s[sw.window_chunks:]))
+    print(f"stream refit time split (last window, each part timed alone): "
+          f"state update per post (absorb + retract) {update_s:.4f} s; VAR "
+          f"solve + residuals {last['plan_s']:.4f} s; ordering "
+          f"{order_s:.3f} s; pruning + diagnostics "
+          f"{from_stats_s - order_s:.3f} s (difference of fit_from_stats "
+          f"{from_stats_s:.3f} s and the ordering); whole refit "
+          f"{last['seconds']:.3f} s")
+    print(f"stream: true edges forward in the last refit's order "
+          f"{forward_share(last_order, b0_s):.3f} (for the record: at 2048 "
+          f"samples the estimator may miss weak edges)")
+    del refits, plan, x_roll, session
+
+    # 9. kernels line: launches are those of each kernel's path (the
+    # lingam-1m-100 fit, the rolling stream, B3's entry point).
     print(json.dumps({"kernels": [{
         "name": "pairwise_moments",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise_moments.cu",
-        "replaces": "src/repro/kernels/pairwise_stats.py:80",
+        "replaces": "src/repro/kernels/pairwise_stats.py:172",
         "launches": fits["none"][1],
         "max_abs_err": full_err,
         "ms": kernel_ms,
@@ -339,12 +788,42 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
+    }, {
+        "name": "pairwise_moment_sums_rows",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pairwise_moments.cu",
+        "replaces": "src/repro/kernels/pairwise_stats.py:113",
+        "launches": stream_launches,
+        "max_abs_err": rows_err,
+        "ms": rows_ms,
+        "plain_ms": rows_plain_ms,
+        "bound_ms": rows_bound[0],
+        "bound_by": ("operations" if rows_bound[1] >= rows_bound[2]
+                     else "bytes"),
+        "library_ms": None,
+    }, {
+        "name": "fused_moment_sums",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_moments.cu",
+        "replaces": "src/repro/kernels/fused_stats.py:69",
+        "launches": fused_launches,
+        "max_abs_err": fused["float32"]["err"],
+        "ms": fused["float32"]["ms"],
+        "plain_ms": fused_plain_ms,
+        "bound_ms": fused["float32"]["bound"][0],
+        "bound_by": ("operations" if fused["float32"]["bound"][1]
+                     >= fused["float32"]["bound"][2] else "bytes"),
+        "library_ms": None,
+        "bfloat16_ms": fused["bfloat16"]["ms"],
+        "bfloat16_bound_ms": fused["bfloat16"]["bound"][0],
+        "bfloat16_max_abs_err": fused["bfloat16"]["err"],
     }]}))
     print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s (test shapes worst err "
-          f"{worst:.3e})")
+          f"{time.perf_counter() - t_start:.1f} s (test shapes worst err: B1 "
+          f"{worst:.3e}, B2 {worst_rows:.3e} per sample, B3 "
+          f"{worst_fused:.3e} per sample)")
 
-    # 6. last line
+    # 10. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

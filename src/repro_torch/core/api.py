@@ -44,6 +44,13 @@ class FitConfig:
                         (``ordering.compact_order_impl``): same order,
                         about half the pair work.
 
+    ``moment_chunk``: when set, the ordering's pairwise moments
+    accumulate over (moment_chunk, d) sample slabs
+    (``ops.pairwise_moments_chunked``: one row-tile kernel launch per
+    slab on the card), so the plain versions' residual intermediate is
+    O(chunk * d^2) whatever m is. Valid with backend ``None``,
+    ``"cuda"`` or ``"blocked"``.
+
     ``prune_kwargs`` is stored as a sorted tuple of (key, value) pairs so
     the config stays hashable; a dict is normalized on construction.
     """
@@ -55,6 +62,7 @@ class FitConfig:
     compaction: str = "none"
     compaction_frac: float = 0.25
     min_stage: int = 8
+    moment_chunk: Optional[int] = None
 
     def __post_init__(self):
         if isinstance(self.prune_kwargs, dict):
@@ -64,6 +72,16 @@ class FitConfig:
         ops.check_backend(self.backend)
         if self.compaction not in ("none", "staged"):
             raise ValueError(f"unknown compaction: {self.compaction}")
+        if self.moment_chunk is not None:
+            if self.backend not in (None, "cuda", "blocked"):
+                raise ValueError(
+                    "moment_chunk requires backend None, 'cuda' or 'blocked' "
+                    f"(chunk accumulation has no {self.backend!r} variant)"
+                )
+            if self.moment_chunk < 1:
+                raise ValueError(
+                    f"moment_chunk must be >= 1, got {self.moment_chunk}"
+                )
 
     @property
     def prune_kwargs_dict(self) -> Dict[str, Any]:
@@ -108,6 +126,18 @@ def tf32_enabled() -> bool:
     return bool(matmul.allow_tf32)
 
 
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; raises for a CUDA device when there is no
+    card, so that an entry point never moves to the CPU unless asked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU"
+        )
+    return device
+
+
 def _check_device(x):
     if x.is_cuda and tf32_enabled():
         # C = X^T X / m must be the exact ddof=0 correlation for the
@@ -120,7 +150,8 @@ def _check_device(x):
 
 
 def _order_for_config(x, config: FitConfig):
-    reducer = ordering.LocalReducer(backend=config.backend)
+    reducer = ordering.LocalReducer(backend=config.backend,
+                                    moment_chunk=config.moment_chunk)
     if config.compaction == "staged":
         return ordering.compact_order_impl(
             x, reducer, frac=config.compaction_frac,
@@ -164,6 +195,13 @@ def fit_fn(x, config: FitConfig = FitConfig()) -> FitResult:
 _STATS_EPS = 1e-12
 
 
+def standardize_from_stats(x, mean, cov):
+    """(x - mean) / sqrt(diag(cov)) in float32: the data the ordering of
+    :func:`fit_from_stats` starts from."""
+    var = torch.clamp(torch.diagonal(cov.float()), min=_STATS_EPS)
+    return (x.float() - mean.float()[None, :]) * torch.rsqrt(var)[None, :]
+
+
 def fit_from_stats(
     x, mean, cov, config: FitConfig = FitConfig()
 ) -> FitResult:
@@ -174,15 +212,11 @@ def fit_from_stats(
     pass the fit can avoid: the initial standardization, the pruning
     solves (from ``cov``), and the residual diagnostics
     ``diag((I-B) cov (I-B)^T)``. Only the nonlinear ordering moments
-    still read the rows.
+    still read the rows (chunk-bounded with ``config.moment_chunk``).
     """
     _check_device(x)
-    x = x.float()
-    mean = mean.float()
     cov = cov.float()
-    var = torch.clamp(torch.diagonal(cov), min=_STATS_EPS)
-    x0 = (x - mean[None, :]) * torch.rsqrt(var)[None, :]
-    order = _order_for_config(x0, config)
+    order = _order_for_config(standardize_from_stats(x, mean, cov), config)
     b = pruning.estimate_adjacency_from_cov(
         cov,
         order,

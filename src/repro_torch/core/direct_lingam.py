@@ -51,12 +51,7 @@ class DirectLiNGAM:
         )
 
     def fit(self, x) -> "DirectLiNGAM":
-        device = torch.device(self.device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to fit on "
-                "the CPU"
-            )
+        device = api.resolve_device(self.device)
         x = torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32),
                             device=device)
         result = api.fit_fn(x, self.to_config())

@@ -47,15 +47,17 @@ class LocalReducer:
       * ``gram_mean(v) -> v^T v / m``, a float64 product rounded to float32
         (never TF32)
       * ``moment_rows(x_std, c) -> (M1, M2)`` pairwise residual moment
-        means for all (i, j)
+        means for all (i, j); with ``moment_chunk`` set, accumulated over
+        (moment_chunk, d) sample slabs (``ops.pairwise_moments_chunked``)
       * ``col_moments(x_std) -> (cm1, cm2)`` per-column nonlinear moments
         for the H(x_i) entropies
       * ``standardize(x) -> (x_std, c, mu, var)``
     """
 
-    def __init__(self, backend: str = None):
+    def __init__(self, backend: str = None, moment_chunk: int = None):
         ops.check_backend(backend)
         self.backend = backend
+        self.moment_chunk = moment_chunk
 
     def mean_over_samples(self, v):
         return (v.sum(dim=0, dtype=torch.float64) / v.shape[0]).float()
@@ -68,6 +70,9 @@ class LocalReducer:
         return step_standardize(x, self)
 
     def moment_rows(self, x_std, c):
+        if self.moment_chunk:
+            return ops.pairwise_moments_chunked(
+                x_std, c, chunk=self.moment_chunk, backend=self.backend)
         return ops.pairwise_moments(x_std, c, backend=self.backend)
 
     def col_moments(self, x_std):
@@ -121,18 +126,23 @@ def ordering_step(x, active, reducer):
     cm1, cm2 = reducer.col_moments(x_std)
     k_list = step_scores(cm1, cm2, m1, m2, active)
     root = torch.argmax(k_list)  # first maximum, as jnp.argmax
-    sel = root.view(1)
+    x_new, active_new = residualize(x, active, root, mu, var, reducer)
+    return x_new, active_new, root
 
-    # Residualize every other active column on the root column of the
-    # unstandardized working data (two-pass covariance, as above).
+
+def residualize(x, active, root, mu, var, reducer):
+    """Regress every other active column on ``root``'s column of the
+    unstandardized working data (two-pass covariance, with the step's
+    column means ``mu`` and variances ``var``). Returns the new data and
+    the mask without ``root``."""
+    sel = root.view(1)
     xr = x.index_select(1, sel)  # (m, 1)
     cov = reducer.mean_over_samples((x - mu[None, :]) * (xr - mu[sel]))
     coef = cov / var[sel]
     cols = torch.arange(x.shape[1], device=x.device)
     not_root = cols != root
     update = torch.where(active & not_root, coef, 0.0)
-    x_new = x - xr * update[None, :]
-    return x_new, active & not_root, root
+    return x - xr * update[None, :], active & not_root
 
 
 def masked_order_impl(x, reducer):

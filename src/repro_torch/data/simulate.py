@@ -5,6 +5,10 @@ node's parents come from the previous layer), effects theta ~ N(0, 1),
 noise e ~ Uniform(0, 1) (non-Gaussian, as LiNGAM requires). Given the
 same arguments it returns the same arrays as the JAX package's
 ``repro.data.simulate.simulate_lingam``.
+
+``simulate_var_stocks`` -- the paper's section 4.2 stand-in: a stationary
+VAR(1) series with a sparse LiNGAM instantaneous graph (stock-like), the
+same arrays as ``repro.data.simulate.simulate_var_stocks``.
 """
 
 from __future__ import annotations
@@ -73,3 +77,35 @@ def simulate_lingam(
     # order must list *permuted* ids in causal order: original node k is now
     # called inv[k]; original order was 0..d-1 by construction.
     return LingamGroundTruth(adjacency=b_perm, order=order, data=x.astype(np.float32))
+
+
+def simulate_var_stocks(
+    m: int = 4000,
+    d: int = 487,
+    edge_prob: float = 0.01,
+    ar_scale: float = 0.2,
+    seed: int = 0,
+):
+    """Stationary VAR(1) with a LiNGAM instantaneous graph (stock-like).
+
+    Returns (series, b0, m1): x(t) = B0 x(t) + M1 x(t-1) + e(t), i.e.
+    x(t) = (I-B0)^{-1} (M1 x(t-1) + e(t)).
+    """
+    rng = np.random.default_rng(seed)
+    b0 = np.zeros((d, d))
+    for i in range(1, d):
+        parents = rng.random(i) < edge_prob
+        b0[i, :i][parents] = rng.standard_normal(parents.sum()) * 0.5
+    m1 = rng.standard_normal((d, d)) * (rng.random((d, d)) < edge_prob)
+    m1 *= ar_scale
+    # Spectral-radius guard for stationarity.
+    a = np.linalg.solve(np.eye(d) - b0, m1)
+    rad = np.max(np.abs(np.linalg.eigvals(a)))
+    if rad >= 0.95:
+        m1 *= 0.9 / rad
+    inv = np.linalg.inv(np.eye(d) - b0)
+    x = np.zeros((m, d))
+    e = rng.laplace(0.0, 1.0, size=(m, d))
+    for t in range(1, m):
+        x[t] = inv @ (m1 @ x[t - 1] + e[t])
+    return x.astype(np.float32), b0, m1

@@ -1,9 +1,15 @@
 // Pairwise residual-entropy moment sums for DirectLiNGAM, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/pairwise_stats.py::_kernel
-// as launched by pairwise_moments_pallas (and, through a second wrapper over
-// the same launcher, by pairwise_moment_sums_rows). For every pair (i, j) of
-// a row tile [row0, row0 + rows) against all d columns:
+// under both of its launches, through two wrappers in
+// repro_torch/kernels/pairwise_stats.py over the same launchers:
+//   * pairwise_moments_pallas (B1): wrapper pairwise_moments, all d rows,
+//     reduce scale 1/m;
+//   * pairwise_moment_sums_rows (B2): wrapper pairwise_moment_sums_rows, a
+//     row tile, reduce scale 1 (sums), launched once per sample slab by the
+//     chunked streaming path.
+// For every pair (i, j) of a row tile [row0, row0 + rows) against all d
+// columns:
 //
 //   u_ij(s) = (x_i(s) - C_ij x_j(s)) / sqrt(max(1 - C_ij^2, 1e-12))
 //   S1_ij   = sum_s log cosh u_ij(s)      = |u| + log1p(exp(-2|u|)) - log 2

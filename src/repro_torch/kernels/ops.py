@@ -13,13 +13,20 @@
 
 All backends return (M1, M2) of shape (d, d) fp32 equal up to fp32
 accumulation order.
+
+The streaming entries return *sums*: ``pairwise_moment_sums_rows`` for a
+row tile (kernel B2 on the card), ``pairwise_moment_sums_chunked`` over
+(chunk, d) sample slabs (one B2 launch per slab, added in fixed order),
+and ``fused_moment_rows`` from raw X (kernel B3). ``pairwise_moments_chunked``
+divides the chunked sums by m.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from . import pairwise_stats, ref
+from . import fused_stats, pairwise_stats, ref
 from .nonlinearity import nonlinear_terms
 
 BACKENDS = (None, "cuda", "ref", "blocked")
@@ -42,26 +49,37 @@ def check_backend(backend) -> None:
         )
 
 
-def pairwise_moments_blocked(x_std, c, block: int = 64):
-    """Row-blocked plain version: O(block * d * m) peak memory.
+def pairwise_moment_sums_blocked(x_std, c, row0: int = 0, rows: int = None,
+                                 block: int = 64):
+    """Row-blocked plain version of the moment *sums* of the row tile
+    ``[row0, row0 + rows)``: O(block * d * m) peak memory.
 
     Loops over blocks of ``i`` rows; within a block the (block, d, m)
     residual tensor is formed and reduced.
     """
     m, d = x_std.shape
-    block = min(block, _round_up(d, 8))
+    rows = d - row0 if rows is None else rows
+    block = min(block, _round_up(rows, 8))
     xt = x_std.T.float()
-    c = c.float()
-    inv_std = torch.rsqrt(torch.clamp(1.0 - c * c, min=ref.EPS))
-    m1 = torch.empty((d, d), dtype=torch.float32, device=x_std.device)
-    m2 = torch.empty_like(m1)
-    for r0 in range(0, d, block):
-        r1 = min(d, r0 + block)
-        r = xt[r0:r1, None, :] - c[r0:r1, :, None] * xt[None, :, :]
+    c_rows = c[row0:row0 + rows].float()
+    inv_std = torch.rsqrt(torch.clamp(1.0 - c_rows * c_rows, min=ref.EPS))
+    s1 = torch.empty((rows, d), dtype=torch.float32, device=x_std.device)
+    s2 = torch.empty_like(s1)
+    for r0 in range(0, rows, block):
+        r1 = min(rows, r0 + block)
+        xi = xt[row0 + r0:row0 + r1, None, :]
+        r = xi - c_rows[r0:r1, :, None] * xt[None]
         logcosh, uexp = nonlinear_terms(r * inv_std[r0:r1, :, None])
-        m1[r0:r1] = logcosh.mean(dim=-1)
-        m2[r0:r1] = uexp.mean(dim=-1)
-    return m1, m2
+        s1[r0:r1] = logcosh.sum(dim=-1)
+        s2[r0:r1] = uexp.sum(dim=-1)
+    return s1, s2
+
+
+def pairwise_moments_blocked(x_std, c, block: int = 64):
+    """Row-blocked plain version of the means (M1, M2), each (d, d)."""
+    inv_m = float(np.float32(1.0 / x_std.shape[0]))
+    s1, s2 = pairwise_moment_sums_blocked(x_std, c, block=block)
+    return s1 * inv_m, s2 * inv_m
 
 
 def pairwise_moments(x_std, c, *, backend: str = None):
@@ -79,6 +97,90 @@ def pairwise_moments(x_std, c, *, backend: str = None):
     # The kernel reads both row-major; cuBLAS may return X^T X
     # column-major (no copy when already contiguous).
     return pairwise_stats.pairwise_moments(x_std.contiguous(), c.contiguous())
+
+
+def _check_tile(d: int, row_start: int, tile: int) -> None:
+    # A host-int tile: out of range raises (the reference's traced
+    # dynamic_slice clamps instead; no caller passes one).
+    if not (0 <= row_start and tile >= 1 and row_start + tile <= d):
+        raise ValueError(
+            f"row tile [{row_start}, {row_start + tile}) outside [0, {d})"
+        )
+
+
+def pairwise_moment_sums_rows(x_std, c, row_start: int, tile: int, *,
+                              backend: str = None):
+    """Pairwise residual moment *sums* (S1, S2), each (tile, d) float32,
+    for the rows ``[row_start, row_start + tile)`` against all columns.
+
+    ``x_std`` (m, d) is standardized by the statistics ``c`` came from;
+    ``row_start`` is a host int. Backends as :func:`pairwise_moments`,
+    without ``"ref"``.
+    """
+    check_backend(backend)
+    _check_tile(x_std.shape[1], row_start, tile)
+    if backend == "ref":
+        raise ValueError("row-tile moment sums have no 'ref' backend")
+    if backend == "blocked":
+        return pairwise_moment_sums_blocked(x_std, c, row_start, tile)
+    if backend == "cuda" and not x_std.is_cuda:
+        raise ValueError(
+            f"backend 'cuda' needs tensors on a CUDA device, got "
+            f"{x_std.device}; use backend=None or 'blocked' on the CPU"
+        )
+    return pairwise_stats.pairwise_moment_sums_rows(
+        x_std.contiguous(), c.contiguous(), row_start, tile)
+
+
+def pairwise_moment_sums_chunked(x_std, c, *, chunk: int = 512,
+                                 backend: str = None):
+    """Pairwise residual moment *sums* (S1, S2), each (d, d), accumulated
+    over (chunk, d) sample slabs.
+
+    The streaming entry: each slab is a row view of the sample-major
+    ``x_std`` (no copy) and gets one :func:`pairwise_moment_sums_rows`
+    call over all d rows -- one kernel B2 launch on the card -- and the
+    slab sums are added in fixed order in float32. The kernel's split
+    plan depends on the slab's sample count alone, so a pair's sums are
+    the same at every buffer width. ``chunk`` bounds the residual
+    intermediate of the plain versions at O(chunk * d^2).
+    """
+    m, d = x_std.shape
+    chunk = max(1, min(chunk, m))
+    x_std = x_std.contiguous()
+    c = c.contiguous()
+    s1, s2 = pairwise_moment_sums_rows(x_std[:chunk], c, 0, d,
+                                       backend=backend)
+    for k0 in range(chunk, m, chunk):
+        t1, t2 = pairwise_moment_sums_rows(x_std[k0:k0 + chunk], c, 0, d,
+                                           backend=backend)
+        s1 = s1 + t1
+        s2 = s2 + t2
+    return s1, s2
+
+
+def pairwise_moments_chunked(x_std, c, *, chunk: int = 512,
+                             backend: str = None):
+    """Chunk-accumulated pairwise moment *means*: the chunked sums times
+    the float32 1/m, as the reference."""
+    inv_m = float(np.float32(1.0 / x_std.shape[0]))
+    s1, s2 = pairwise_moment_sums_chunked(x_std, c, chunk=chunk,
+                                          backend=backend)
+    return s1 * inv_m, s2 * inv_m
+
+
+def fused_moment_rows(x_raw, mu, rstd, c, row_start: int, tile: int):
+    """Fused standardize + moment *sums* (S1, S2), each (tile, d), for
+    rows ``[row_start, row_start + tile)`` of *raw* sample-major data
+    (float32 or bfloat16) with per-variable ``mu`` and ``rstd``.
+
+    Kernel B3 on a CUDA tensor, its plain version on a CPU tensor. The
+    samples are masked by index, so nothing is padded; ``row_start`` is
+    a host int and a tile out of range raises.
+    """
+    return fused_stats.fused_moment_sums(
+        x_raw.contiguous(), mu.float().contiguous(),
+        rstd.float().contiguous(), c.float().contiguous(), row_start, tile)
 
 
 def standardize(x, eps=ref.EPS):

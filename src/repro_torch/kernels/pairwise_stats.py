@@ -13,9 +13,15 @@ The kernel (``csrc/pairwise_moments.cu``) replaces the Pallas TPU kernel
 ``pairwise_moments_pallas``. It produces moment *sums* for a row tile
 ``[row0, row0 + rows)`` against all columns, split over the sample axis
 into ``n_split`` ranges that a second kernel adds in fixed order, so
-results are bit-identical from run to run. ``pairwise_moments`` (the
-reference's B1 entry) divides by m; the row-tile entry of the mesh and
-streaming plans will be a second wrapper over the same launcher.
+results are bit-identical from run to run. Two wrappers share the
+launcher:
+
+  * ``pairwise_moments`` -- the reference's ``pairwise_moments_pallas``
+    (kernel B1): all d rows, divided by m in the reduce kernel;
+  * ``pairwise_moment_sums_rows`` -- the reference's
+    ``pairwise_moment_sums_rows`` (kernel B2): the *sums* of a row tile,
+    scale 1. The chunked streaming path (``ops.pairwise_moment_sums_chunked``)
+    launches it once per sample slab, on a row view of the sample-major X.
 
 ``pairwise_moment_sums_plain`` is the kernel's plain-torch version: the
 same split plan, the same 128-wide sample sub-sums, the same fixed order
@@ -44,8 +50,11 @@ N_SPLIT = 32
 # Elements of one (rows, d, samples) temporary in the plain version.
 _PLAIN_BUDGET = 1 << 22
 
-# Kernel launches through the wrappers (one per call that runs on the card).
+# Kernel launches through each wrapper (one per call that runs on the card):
+# ``launches`` counts pairwise_moments (B1), ``rows_launches``
+# pairwise_moment_sums_rows (B2).
 launches = 0
+rows_launches = 0
 
 
 def split_plan(m: int, n_split: int = None):
@@ -141,7 +150,6 @@ def _kernel_lib():
 
 
 def _launch_sums(x_std, c, row0, rows, n_split, scale):
-    global launches
     if x_std.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(
             f"the CUDA kernel takes float32, got {x_std.dtype} and {c.dtype}"
@@ -169,7 +177,6 @@ def _launch_sums(x_std, c, row0, rows, n_split, scale):
         )
         if err:
             raise RuntimeError(f"pairwise_moment_reduce: CUDA error {err}")
-    launches += 1
     return out1, out2
 
 
@@ -182,12 +189,39 @@ def pairwise_moments(x_std, c, *, n_split=None):
     On a CUDA tensor this launches the kernel (float32, contiguous, or it
     raises); on a CPU tensor it runs the plain version.
     """
+    global launches
     m, d = x_std.shape
     _check(x_std, c, 0, d)
     inv_m = float(np.float32(1.0 / m))  # the reference's f32 1/m
     if x_std.is_cuda:
-        return _launch_sums(x_std, c, 0, d, n_split, inv_m)
+        out = _launch_sums(x_std, c, 0, d, n_split, inv_m)
+        launches += 1
+        return out
     if x_std.device.type != "cpu":
         raise ValueError(f"no pairwise-moment kernel for {x_std.device}")
     s1, s2 = pairwise_moment_sums_plain(x_std, c, n_split=n_split)
     return s1 * inv_m, s2 * inv_m
+
+
+def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None):
+    """Pairwise residual moment *sums* (S1, S2), each (rows, d) float32,
+    for the row tile ``[row0, row0 + rows)`` against all d columns.
+
+    Args:
+      x_std: (m, d) standardized samples, sample-major (a row slice of a
+             larger sample-major X is a valid, contiguous input).
+      c:     (d, d) correlation of the data ``x_std`` was standardized by.
+      row0, rows: the tile, host ints; a tile outside [0, d) raises.
+    On a CUDA tensor this launches the kernel (float32, contiguous, or it
+    raises); on a CPU tensor it runs the plain version.
+    """
+    global rows_launches
+    _check(x_std, c, row0, rows)
+    if x_std.is_cuda:
+        out = _launch_sums(x_std, c, row0, rows, n_split, 1.0)
+        rows_launches += 1
+        return out
+    if x_std.device.type != "cpu":
+        raise ValueError(f"no pairwise-moment kernel for {x_std.device}")
+    return pairwise_moment_sums_plain(x_std, c, row0=row0, rows=rows,
+                                      n_split=n_split)

@@ -1,0 +1,34 @@
+"""Streaming causal discovery: incremental moments, rolling windows,
+sessions.
+
+  * :mod:`repro_torch.stream.stats` -- mergeable sufficient statistics
+    (:class:`MomentState`: Chan-style merge + exact retraction).
+  * :mod:`repro_torch.stream.window` -- :class:`ChunkRing` +
+    :class:`RollingVarLiNGAM`: a VarLiNGAM whose window advances by
+    absorbing/retracting chunks instead of rescanning.
+  * :mod:`repro_torch.stream.session` -- :class:`StreamSession` /
+    :class:`GraphDelta`: one client's rolling state and graph deltas.
+"""
+
+from .session import (  # noqa: F401
+    GraphDelta,
+    StreamConfig,
+    StreamSession,
+    graph_delta,
+)
+from .stats import MomentState  # noqa: F401
+from .stats import (  # noqa: F401
+    from_chunk,
+    init,
+    merge,
+    retract,
+    retract_chunk,
+    update_chunk,
+)
+from .window import (  # noqa: F401
+    ChunkRing,
+    RollingFit,
+    RollingVarLiNGAM,
+    direct_window_fit,
+    lagged_rows,
+)

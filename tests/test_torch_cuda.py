@@ -1,23 +1,31 @@
-"""The CUDA kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Imports neither jax nor the JAX package, so it runs on a machine that
 has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Skips without a card. Tolerance: off-diagonal moments within atol 2e-6,
-the reference's own kernel tolerance; repeat launches bit-identical.
+Skips without a card. Tolerances: off-diagonal moments within atol 2e-6
+(B1), row-tile sums within 2e-6 * m (B2) and fused sums within 4e-6 * m
+(B3), the reference's own kernel tolerances; repeat launches
+bit-identical.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, pairwise_stats
+from repro_torch.kernels import fused_stats, ops, pairwise_stats
 
 SHAPES = [(64, 4), (100, 5), (257, 10), (511, 16), (1000, 33), (2048, 64),
           (4096, 130), (777, 40)]
 ATOL = 2e-6
+# (tile, d, m) straddling the reference's block multiples
+# (tests/test_kernels.py _EDGE_CELLS), each at row offset 0 and > 0.
+EDGE_CELLS = [(7, 9, 127), (8, 16, 129), (9, 15, 255), (8, 17, 257),
+              (16, 16, 128)]
+TILES = [(tile, d, m, row0, min(tile, d - row0))
+         for tile, d, m in EDGE_CELLS for row0 in (0, max(1, d - tile))]
 
 
 @pytest.fixture
@@ -58,3 +66,80 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda_device):
         pairwise_stats.pairwise_moments(xs.double(), c.double())
     with pytest.raises(ValueError):
         pairwise_stats.pairwise_moments(xs, c.t())  # a column-major view
+
+
+def _offdiag_err(got, want, row0):
+    rows, d = got.shape
+    mask = ~torch.eye(rows, d, dtype=torch.bool, device=got.device)
+    mask = torch.roll(mask, row0, dims=1) if row0 else mask
+    return (got - want)[mask].abs().max().item()
+
+
+def _raw(m, d, device):
+    x = np.random.default_rng(m * 1000 + d).laplace(size=(m, d))
+    x = torch.tensor(x, dtype=torch.float32, device=device)
+    mu = x.mean(dim=0)
+    rstd = torch.rsqrt(((x - mu) ** 2).mean(dim=0))
+    c = ops.correlation((x - mu) * rstd).contiguous()
+    return x, mu, rstd, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,d,m,row0,rows", TILES)
+def test_cuda_row_tile_kernel_matches_plain_version(cuda_device, tile, d, m,
+                                                    row0, rows):
+    x, mu, rstd, c = _raw(m, d, cuda_device)
+    xs = (x - mu) * rstd
+    before = pairwise_stats.rows_launches
+    k1, k2 = pairwise_stats.pairwise_moment_sums_rows(xs, c, row0, rows)
+    r1, r2 = pairwise_stats.pairwise_moment_sums_rows(xs, c, row0, rows)
+    torch.cuda.synchronize()
+    assert pairwise_stats.rows_launches == before + 2
+    assert torch.equal(k1, r1) and torch.equal(k2, r2)
+    p1, p2 = pairwise_stats.pairwise_moment_sums_plain(xs, c, row0=row0,
+                                                       rows=rows)
+    for got, want in ((k1, p1), (k2, p2)):
+        assert got.shape == (rows, d)
+        assert _offdiag_err(got, want, row0) <= 2e-6 * m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile,d,m,row0,rows", TILES)
+def test_cuda_fused_kernel_matches_plain_version(cuda_device, tile, d, m,
+                                                 row0, rows, dtype):
+    x, mu, rstd, c = _raw(m, d, cuda_device)
+    xr = x.to(dtype)
+    before = fused_stats.launches
+    k1, k2 = fused_stats.fused_moment_sums(xr, mu, rstd, c, row0, rows)
+    r1, r2 = fused_stats.fused_moment_sums(xr, mu, rstd, c, row0, rows)
+    torch.cuda.synchronize()
+    assert fused_stats.launches == before + 2
+    assert torch.equal(k1, r1) and torch.equal(k2, r2)
+    p1, p2 = fused_stats.fused_moment_sums_plain(xr, mu, rstd, c, row0=row0,
+                                                 rows=rows)
+    for got, want in ((k1, p1), (k2, p2)):
+        assert _offdiag_err(got, want, row0) <= 4e-6 * m
+    if dtype == torch.float32:
+        # Same standardized values, same summation: B2's sums exactly.
+        s1, _ = pairwise_stats.pairwise_moment_sums_rows((x - mu) * rstd, c,
+                                                         row0, rows)
+        assert torch.equal(k1, s1)
+
+
+@pytest.mark.gpu
+def test_cuda_row_tile_and_fused_kernels_reject_what_they_cannot_take(
+        cuda_device):
+    x, mu, rstd, c = _raw(300, 8, cuda_device)
+    with pytest.raises(ValueError):
+        pairwise_stats.pairwise_moment_sums_rows(x, c, 4, 5)  # past d
+    with pytest.raises(TypeError):
+        pairwise_stats.pairwise_moment_sums_rows(x.double(), c.double(), 0, 8)
+    with pytest.raises(TypeError):
+        fused_stats.fused_moment_sums(x.half(), mu, rstd, c, 0, 8)
+    with pytest.raises(TypeError):
+        fused_stats.fused_moment_sums(x, mu.double(), rstd, c, 0, 8)
+    with pytest.raises(ValueError):
+        fused_stats.fused_moment_sums(x.t(), mu, rstd, c, 0, 8)  # (8, 300)
+    with pytest.raises(ValueError):
+        fused_stats.fused_moment_sums(x, mu, rstd, c.t(), 0, 8)

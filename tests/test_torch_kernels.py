@@ -1,12 +1,17 @@
 """Port's moment kernels against the JAX reference, on the same inputs.
 
+B1 (``pairwise_moments``), B2 (``pairwise_moment_sums_rows`` and the
+chunked streaming entry over it) and B3 (``fused_moment_rows``): on the
+CPU the wrappers run their kernels' plain versions.
+
 The reference runs on the CPU as its own tests run it: the Pallas kernel
 in interpret mode, the ``blocked`` backend, tuning off. Inputs are made
 with numpy and standardized once by the reference, so both sides see
 identical ``x_std`` and ``C``.
 
-Tolerance: off-diagonal moments within atol 2e-6, the reference's own
-kernel tolerance (tests/test_kernels.py); the diagonal is undefined and
+Tolerance: off-diagonal moments within atol 2e-6, row-tile sums within
+2e-6 * m and fused sums within 4e-6 * m: the reference's own kernel
+tolerances (tests/test_kernels.py); the diagonal is undefined and
 callers mask it.
 """
 
@@ -20,7 +25,9 @@ import torch
 from repro.kernels import nonlinearity as jnl
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import nonlinearity, ops, pairwise_stats, ref
+from repro.kernels.tune import Plan
+from repro_torch.kernels import (fused_stats, nonlinearity, ops,
+                                 pairwise_stats, ref)
 
 torch.set_num_threads(1)
 
@@ -107,7 +114,7 @@ def test_kernel_plain_version_split_sweep(n_split):
 
 
 def test_kernel_plain_version_row_tile_sums():
-    """Row-tile sums (the form the row-tile wrapper will take) are the
+    """Row-tile sums (the form the row-tile wrapper B2 returns) are the
     matching rows of the full sums."""
     m, d = RAGGED
     xs, c = (torch.from_numpy(a) for a in _inputs(m, d))
@@ -174,3 +181,163 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):
         pairwise_stats.pairwise_moment_sums_plain(xs, torch.zeros(4, 4),
                                                   row0=2, rows=3)
+
+
+# (tile, d, m) cells straddling the reference's block multiples
+# (tests/test_kernels.py _EDGE_CELLS), each at row offset 0 and > 0.
+EDGE_CELLS = [(7, 9, 127), (8, 16, 129), (9, 15, 255), (8, 17, 257),
+              (16, 16, 128)]
+TILES = [(tile, d, m, row0, min(tile, d - row0))
+         for tile, d, m in EDGE_CELLS for row0 in (0, max(1, d - tile))]
+# Plans whose blocks do not divide the cells, as the reference's tests
+# force, so its wrappers pad every axis and mask the sample tail.
+ROWS_PLAN = Plan(op="pairwise_moment_sums_rows", variant="pallas-row-tile",
+                 backend="pallas", bi=8, bj=8, bm=128, source="override")
+FUSED_PLAN = Plan(op="fused_moment_sums", variant="pallas-fused",
+                  backend="pallas", bi=8, bj=8, bm=256, source="override")
+
+
+def _tile_close(got, want, row0, atol):
+    """Off-diagonal entries of a (rows, d) row tile starting at row0."""
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+    rows, d = got.shape
+    mask = ~np.eye(rows, d, k=row0, dtype=bool)
+    np.testing.assert_allclose(got[mask], np.asarray(want)[mask], atol=atol,
+                               rtol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _raw(m, d):
+    """Raw float32 samples with their float32 mean and 1/std (ddof=0)."""
+    x = np.random.default_rng(7 * m + d).laplace(size=(m, d))
+    x = (x * np.linspace(0.5, 3.0, d) + np.linspace(-2.0, 2.0, d)).astype(
+        np.float32)
+    mu = x.mean(axis=0, dtype=np.float64).astype(np.float32)
+    rstd = (1.0 / x.std(axis=0, dtype=np.float64)).astype(np.float32)
+    return x, mu, rstd
+
+
+@pytest.mark.parametrize("tile,d,m,row0,rows", TILES)
+def test_row_tile_plain_version_matches_pallas(tile, d, m, row0, rows):
+    xs, c = _inputs(m, d)
+    want = jops.pairwise_moment_sums_rows(
+        jnp.asarray(xs), jnp.asarray(c), row0, rows, backend="pallas",
+        interpret=True, plan=ROWS_PLAN)
+    before = pairwise_stats.rows_launches
+    got = ops.pairwise_moment_sums_rows(torch.from_numpy(xs),
+                                        torch.from_numpy(c), row0, rows)
+    assert pairwise_stats.rows_launches == before  # CPU: the plain version
+    blocked = ops.pairwise_moment_sums_rows(
+        torch.from_numpy(xs), torch.from_numpy(c), row0, rows,
+        backend="blocked")
+    for g, b, w in zip(got, blocked, want):
+        assert g.dtype == torch.float32 and g.shape == (rows, d)
+        _tile_close(g, w, row0, 2e-6 * m)
+        _tile_close(b, w, row0, 2e-6 * m)
+
+
+@pytest.mark.parametrize("chunk", [128, 96])
+@pytest.mark.parametrize("backend", ["blocked", "pallas"])
+def test_chunked_plain_version_matches_reference(backend, chunk):
+    m, d = 333, 10
+    xs, c = _inputs(m, d)
+    want = jops.pairwise_moments_chunked(
+        jnp.asarray(xs), jnp.asarray(c), chunk=chunk, backend=backend,
+        interpret=True, tune_mode="off")
+    for port_backend in (None, "blocked"):
+        got = ops.pairwise_moments_chunked(
+            torch.from_numpy(xs), torch.from_numpy(c), chunk=chunk,
+            backend=port_backend)
+        for g, w in zip(got, want):
+            _offdiag_close(g, w)
+
+
+def test_chunked_sums_add_one_row_tile_call_per_slab(monkeypatch):
+    """Each slab is one row-tile call on a row view of X (no copy), and
+    the slab sums are added in order; a ragged last slab is masked."""
+    xs, c = (torch.from_numpy(a) for a in _inputs(333, 10))
+    calls = []
+    real = pairwise_stats.pairwise_moment_sums_rows
+
+    def spy(x, cc, row0, rows, **kw):
+        calls.append((x.shape[0], x.data_ptr(), row0, rows))
+        return real(x, cc, row0, rows, **kw)
+
+    monkeypatch.setattr(pairwise_stats, "pairwise_moment_sums_rows", spy)
+    s1, s2 = ops.pairwise_moment_sums_chunked(xs, c, chunk=128)
+    assert [(n, r0, r) for n, _, r0, r in calls] == [
+        (128, 0, 10), (128, 0, 10), (77, 0, 10)]
+    base = xs.data_ptr()
+    assert [p - base for _, p, _, _ in calls] == [
+        k * 128 * 10 * 4 for k in range(3)]
+    parts = [real(xs[k:k + 128], c, 0, 10) for k in (0, 128, 256)]
+    assert torch.equal(s1, parts[0][0] + parts[1][0] + parts[2][0])
+    assert torch.equal(s2, parts[0][1] + parts[1][1] + parts[2][1])
+
+
+@pytest.mark.parametrize("tile,d,m,row0,rows", TILES)
+def test_fused_plain_version_matches_pallas(tile, d, m, row0, rows):
+    x, mu, rstd = _raw(m, d)
+    xs = (x - mu) * rstd
+    c = (xs.T.astype(np.float64) @ xs / m).astype(np.float32)
+    want = jops.fused_moment_rows(
+        jnp.asarray(x), jnp.asarray(mu), jnp.asarray(rstd), jnp.asarray(c),
+        row0, rows, interpret=True, plan=FUSED_PLAN)
+    before = fused_stats.launches
+    got = ops.fused_moment_rows(torch.from_numpy(x), torch.from_numpy(mu),
+                                torch.from_numpy(rstd), torch.from_numpy(c),
+                                row0, rows)
+    assert fused_stats.launches == before  # CPU: the plain version
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (rows, d)
+        _tile_close(g, w, row0, 4e-6 * m)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_plain_version_matches_pallas_in_both_types(dtype):
+    m, d, tile = 512, 16, 8
+    x, mu, rstd = _raw(m, d)
+    xs = (x - mu) * rstd
+    c = (xs.T.astype(np.float64) @ xs / m).astype(np.float32)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    # Both frameworks round float32 to bfloat16 to nearest even.
+    np.testing.assert_array_equal(tx.float().numpy(),
+                                  np.asarray(jx.astype(jnp.float32)))
+    want = jops.fused_moment_rows(jx, jnp.asarray(mu), jnp.asarray(rstd),
+                                  jnp.asarray(c), 0, tile, interpret=True,
+                                  plan=FUSED_PLAN)
+    got = ops.fused_moment_rows(tx, torch.from_numpy(mu),
+                                torch.from_numpy(rstd), torch.from_numpy(c),
+                                0, tile)
+    for g, w in zip(got, want):
+        _tile_close(g, w, 0, 4e-6 * m)
+
+
+def test_fused_plain_version_is_row_tile_of_standardized_sums():
+    """On the values it standardizes to, B3's plain version is B2's."""
+    x, mu, rstd = (torch.from_numpy(a) for a in _raw(777, 40))
+    xs = (x - mu) * rstd
+    c = ops.correlation(xs)
+    f1, f2 = fused_stats.fused_moment_sums_plain(x, mu, rstd, c, row0=16,
+                                                 rows=9)
+    r1, r2 = pairwise_stats.pairwise_moment_sums_plain(xs, c, row0=16,
+                                                       rows=9)
+    assert torch.equal(f1, r1) and torch.equal(f2, r2)
+
+
+def test_row_tile_and_fused_entries_reject_bad_tiles():
+    xs, c = (torch.from_numpy(a) for a in _inputs(257, 10))
+    x, mu, rstd = (torch.from_numpy(a) for a in _raw(257, 10))
+    for row0, rows in ((8, 3), (-1, 2), (0, 0)):
+        # A host-int tile out of range raises (the reference clamps).
+        with pytest.raises(ValueError, match="row tile"):
+            ops.pairwise_moment_sums_rows(xs, c, row0, rows)
+        with pytest.raises(ValueError, match="row tile"):
+            ops.fused_moment_rows(x, mu, rstd, c, row0, rows)
+    with pytest.raises(ValueError, match="ref"):
+        ops.pairwise_moment_sums_rows(xs, c, 0, 10, backend="ref")
+    with pytest.raises(ValueError, match="cuda"):
+        ops.pairwise_moment_sums_chunked(xs, c, chunk=64, backend="cuda")
+    with pytest.raises(ValueError):
+        fused_stats.fused_moment_sums(x, mu[:5], rstd, c, 0, 10)
