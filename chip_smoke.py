@@ -8,19 +8,26 @@ any failure of which exits non-zero:
 
   1. device: the card's name and power limit, the TF32 flag; build the
      CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
-     process per source, all at once;
+     process per source, all at once, and read each kernel's registers
+     and spills from the ptxas report;
   2. kernel B1 (``pairwise_moments``) against its plain-torch version on
      the card: the test shapes at atol 2e-6, one full-size step
      (m = 1,000,000, d = 100) against the plain version in float64, and
-     two launches bit-identical;
+     two launches bit-identical; width invariance (the leading 75 and 56
+     columns of that step, the leading 243 of a 487-wide X, bit for bit
+     the full launch's pairs); B1 timed at (1e6, 100) and at the
+     VarLiNGAM shape (3999, 487);
   3. kernel B2 (``pairwise_moment_sums_rows``) against its plain version:
      the reference's padding-edge cells with and without a row offset, and
      the rolling stream's shape (a 2048 x 487 window in 256-row slabs)
-     against float64; two launches bit-identical;
+     against float64; two launches bit-identical; the slab-structured
+     launch (one per ordering step) equal bit for bit to the per-slab
+     launches added in order, at the window and at a ragged 2000 rows,
+     and timed for one window step;
   4. kernel B3 (``fused_moment_sums``) against its plain version in
      float32 and bfloat16, at the edge cells and at (1e6, 100) against
-     float64, and against B1 on the same standardized values; then its
-     entry point ``ops.fused_moment_rows`` once in each type;
+     float64, and bit-equal to B1/B2 on the same standardized values; then
+     its entry point ``ops.fused_moment_rows`` once in each type;
   5. mid-size fits (m = 20,000, d = 32): the kernel against the plain
      ``blocked`` backend, both on the card: on a layered DAG, step by step
      up to ties between equally valid roots; on a chain DAG, whose order
@@ -34,9 +41,11 @@ any failure of which exits non-zero:
      ``StreamSession``: 12 chunks of 256 rows, 5 refits (4 after a
      retraction), each held against the from-scratch window fit, one
      walked against ``blocked``, compactions "staged" and "none" equal;
-     B2 launched once per slab and ordering step;
+     B2 launched once per ordering step; one more refit of the last
+     window under ``torch.profiler`` for B2's kernel time per refit and
+     the device's idle share;
   9. one JSON line listing every ported kernel with its launches on its
-     path, error, times and bound;
+     path, error, times, bound and ptxas registers and spills;
  10. last line: {"ok": true, "device": {...}}.
 """
 
@@ -58,7 +67,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # reference's own kernel tolerance (tests/test_kernels.py).
 ATOL_F32 = 2e-6
 # Against the float64 plain version at m = 1e6: fp32 sums over ~7,800
-# 128-sample sub-sums (in 22 splits) carry ~1e-6 relative rounding; the
+# 128-sample sub-sums (in 127 splits) carry ~1e-6 relative rounding; the
 # means are O(0.4), so 1e-5 absolute leaves a margin of several times.
 ATOL_F64_FULL = 1e-5
 # Adjacency of two fits with equal orders: the backends' moments differ
@@ -79,7 +88,7 @@ ATOL_FUSED = 4e-6
 ATOL_STREAM = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 SFU_OPS_PER_CLOCK_PER_SM = 16
-SFU_OPS_PER_TERM = 3  # exp(-2|u|), log1p(.), exp(-u^2/2)
+SFU_OPS_PER_TERM = 3  # ex2 (exp(-2|u|)), lg2 (log1p), ex2 (exp(-u^2/2))
 
 
 def fail(msg: str):
@@ -93,6 +102,63 @@ def smi(query: str) -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str):
+    """{kernel entry: {"registers", "spill_stores", "spill_loads"}} from
+    an ``nvcc -Xptxas -v`` log, one entry per compiled kernel instance."""
+    names = (("pair_partials_kernelILi4E", "pair_partials<4>"),
+             ("pair_partials_kernelILi2E", "pair_partials<2>"),
+             ("pair_partials_kernelILi1E", "pair_partials<1>"),
+             ("reduce_slabs_kernel", "reduce_slabs"),
+             ("fused_partials_kernelIfE", "fused_partials<float>"),
+             ("fused_partials_kernelI13__nv_bfloat16E",
+              "fused_partials<bfloat16>"),
+             ("reduce_splits_kernel", "reduce_splits"))
+    report, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = next((short for key, short in names if key in line), None)
+            if entry:
+                report[entry] = {}
+        elif entry and "spill stores" in line:
+            words = line.replace(",", " ").split()
+            report[entry]["spill_stores"] = int(words[words.index("spill") - 2])
+            report[entry]["spill_loads"] = int(words[-4])
+        elif entry and "registers" in line:
+            words = line.replace(",", " ").split()
+            report[entry]["registers"] = int(words[words.index("registers")
+                                                   - 1])
+    return report
+
+
+def device_busy(fn):
+    """Run ``fn`` once under torch.profiler. Returns (wall s, device busy
+    s, {kernel name: device s}): busy is the union of the device's
+    activity intervals (kernels, copies, sets). If the trace holds no
+    device activity, busy and the per-kernel times are None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return wall, None, None
+    busy, end, per_kernel = 0.0, float("-inf"), {}
+    for start, stop, name in spans:
+        per_kernel[name] = per_kernel.get(name, 0.0) + (stop - start) * 1e-6
+        if stop > end:
+            busy += (stop - max(start, end)) * 1e-6
+            end = stop
+    return wall, busy, per_kernel
 
 
 def offdiag_err(a, b, row0=0):
@@ -269,12 +335,17 @@ def main() -> int:
         list(pool.map(build.load, sources))
     print(f"build: {len(sources)} sources in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
+    ptxas = {}
     for name in sources:
         info = build.build_info[name]
         print(f"build: {name}.cu in {info['seconds']:.2f} s")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "entry" in line:
-                print(f"  ptxas: {line.strip()}")
+        ptxas.update(ptxas_report(info["log"]))
+    for entry, rep in ptxas.items():
+        print(f"  ptxas: {entry}: {rep}")
+    built = all(build.build_info[n]["log"] for n in sources)
+    if built and (len(ptxas) != 7 or any(len(r) != 3
+                                         for r in ptxas.values())):
+        fail(f"ptxas report incomplete: {ptxas}")
 
     # 2. kernel against its plain version on the card
     rng = np.random.default_rng(42)
@@ -334,6 +405,49 @@ def main() -> int:
           f"bound {bound_ms:.3f} ms (special-function ops {ops_ms:.3f} ms, "
           f"bytes {bytes_ms:.3f} ms)")
 
+    # Width invariance: the leading columns, standardized once and sliced,
+    # give bit for bit the full launch's pairs, whatever pair block the
+    # launcher picks at each width.
+    def width_invariant(xs, cs, full, width):
+        w1, w2 = ops.pairwise_moments(xs[:, :width].contiguous(),
+                                      cs[:width, :width].contiguous())
+        torch.cuda.synchronize()
+        tile = pairwise_stats.tile_for(width, width, pairwise_stats.slab_plan(
+            xs.shape[0]).n_z, sms)
+        same = (torch.equal(w1, full[0][:width, :width])
+                and torch.equal(w2, full[1][:width, :width]))
+        print(f"B1 width invariance (m={xs.shape[0]}): the leading {width} "
+              f"of {xs.shape[1]} columns (pair block {tile} x {tile}) equal "
+              f"the full launch's pairs bit for bit: {same}")
+        if not same:
+            fail(f"B1 is not width-invariant at {width} of {xs.shape[1]}")
+
+    for width in (75, 56):
+        width_invariant(x_std, c, (a1, a2), width)
+    xv_std = ops.standardize(torch.from_numpy(
+        rng.laplace(size=(3999, 487)).astype(np.float32)).to(dev))
+    cv = ops.correlation(xv_std).contiguous()
+    v1, v2 = ops.pairwise_moments(xv_std, cv)
+    p1, p2 = pairwise_stats.pairwise_moment_sums_plain(xv_std, cv)
+    inv_mv = float(np.float32(1.0 / 3999))
+    var_err = max(offdiag_err(v1, p1 * inv_mv), offdiag_err(v2, p2 * inv_mv))
+    width_invariant(xv_std, cv, (v1, v2), 243)
+    var_b1_ms = cuda_ms(lambda: ops.pairwise_moments(xv_std, cv), 20)
+    var_b1_plain_ms = cuda_ms(
+        lambda: pairwise_stats.pairwise_moment_sums_plain(xv_std, cv), 3)
+    var_b1_bound = moment_bound_ms(487, 487, 3999,
+                                   4 * (3999 * 487 + 3 * 487 * 487), sms,
+                                   clock_mhz)
+    print(f"B1 at the VarLiNGAM shape (m=3999, d=487): {var_b1_ms:.4f} ms per "
+          f"launch (median of 20, CUDA events); plain version "
+          f"{var_b1_plain_ms:.2f} ms; bound {var_b1_bound[0]:.4f} ms "
+          f"(special-function ops {var_b1_bound[1]:.4f} ms, bytes "
+          f"{var_b1_bound[2]:.4f} ms); vs plain: max off-diagonal err "
+          f"{var_err:.3e} (tolerance {ATOL_F32})")
+    if var_err > ATOL_F32:
+        fail(f"B1 disagrees at (3999, 487): {var_err}")
+    del xv_std, cv, v1, v2, p1, p2
+
     # 3. kernel B2 (row-tile sums, scale 1) against its plain version:
     # the reference's padding-edge cells, each at row offset 0 and > 0.
     def tile_offsets(tile, d_e):
@@ -365,7 +479,7 @@ def main() -> int:
                 fail(f"B2 disagrees at ({rows}, {d_e}, {m_e}, {row0})")
             worst_rows = max(worst_rows, err)
     # The rolling stream's shape: a 2048-row window of 487 variables in
-    # 256-row slabs, one B2 launch per slab on a row view of X.
+    # 256-row slabs, one slab-structured B2 launch per ordering step.
     sw = STREAM_WORKLOADS["varlingam-stream-487"]
     m_w, d_w = sw.chunk * sw.window_chunks, sw.d
     xw = ops.standardize(torch.from_numpy(
@@ -381,34 +495,72 @@ def main() -> int:
     rows_err = max(offdiag_err(s1, q1), offdiag_err(s2, q2))
     before = pairwise_stats.rows_launches
     w1, w2 = ops.pairwise_moment_sums_chunked(xw, cw, chunk=sw.chunk)
-    n_slabs = pairwise_stats.rows_launches - before
+    n_step = pairwise_stats.rows_launches - before
     q1, q2 = pairwise_stats.pairwise_moment_sums_plain(xw.double(),
                                                        cw.double())
     torch.cuda.synchronize()
     win_err = max(offdiag_err(w1, q1), offdiag_err(w2, q2))
+    n_slabs = -(-m_w // sw.chunk)
     print(f"B2 at the stream shape: one slab (m={sw.chunk}, d={d_w}) vs "
           f"float64 plain: max off-diagonal err {rows_err:.3e} "
           f"({rows_err / sw.chunk:.3e} per sample), two launches "
-          f"bit-identical {same}; the {m_w}-row window in {n_slabs} slabs "
-          f"vs float64 plain: {win_err:.3e} ({win_err / m_w:.3e} per "
-          f"sample; tolerance {ATOL_ROWS} per sample)")
+          f"bit-identical {same}; the {m_w}-row window, {n_slabs} slabs in "
+          f"{n_step} launch, vs float64 plain: {win_err:.3e} "
+          f"({win_err / m_w:.3e} per sample; tolerance {ATOL_ROWS} per "
+          f"sample)")
     if (not same or rows_err > ATOL_ROWS * sw.chunk
             or win_err > ATOL_ROWS * m_w):
         fail("B2 disagrees at the stream shape")
-    if n_slabs != m_w // sw.chunk:
-        fail(f"expected {m_w // sw.chunk} B2 launches, got {n_slabs}")
+    if n_step != 1:
+        fail(f"expected 1 B2 launch for the {n_slabs} slabs, got {n_step}")
+
+    def per_slab(x, step):
+        """The per-slab launches, their sums added in slab order."""
+        t = None
+        for k0 in range(0, x.shape[0], step):
+            u = pairwise_stats.pairwise_moment_sums_rows(x[k0:k0 + step], cw,
+                                                         0, d_w)
+            t = u if t is None else (t[0] + u[0], t[1] + u[1])
+        return t
+
+    # The slab-structured launch against the per-slab launches, at the
+    # window and at a ragged sample count (7 full slabs and 208 rows).
+    for m_s in (m_w, 2000):
+        got = pairwise_stats.pairwise_moment_sums_slabs(xw[:m_s], cw,
+                                                        sw.chunk)
+        want = per_slab(xw[:m_s], sw.chunk)
+        torch.cuda.synchronize()
+        merged = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        print(f"B2 slab merge (m={m_s}, slabs of {sw.chunk}): one launch "
+              f"equals the per-slab launches added in order bit for bit: "
+              f"{merged}")
+        if not merged:
+            fail(f"the slab-structured B2 launch differs at m={m_s}")
     rows_ms = cuda_ms(
         lambda: pairwise_stats.pairwise_moment_sums_rows(slab, cw, 0, d_w), 50)
-    rows_plain_ms = cuda_ms(
-        lambda: pairwise_stats.pairwise_moment_sums_plain(slab, cw), 5)
+    step_ms = cuda_ms(
+        lambda: ops.pairwise_moment_sums_chunked(xw, cw, chunk=sw.chunk), 50)
+    per_slab_ms = cuda_ms(lambda: per_slab(xw, sw.chunk), 20)
+
+    def per_slab_plain():
+        for k0 in range(0, m_w, sw.chunk):
+            pairwise_stats.pairwise_moment_sums_plain(xw[k0:k0 + sw.chunk], cw)
+
+    step_plain_ms = cuda_ms(per_slab_plain, 3)
     rows_bound = moment_bound_ms(
         d_w, d_w, sw.chunk, 4 * (sw.chunk * d_w + 3 * d_w * d_w), sms,
         clock_mhz)
-    print(f"B2 at (m={sw.chunk}, d={d_w}, rows={d_w}): {rows_ms:.4f} ms per "
-          f"launch (median of 50, CUDA events); plain version "
-          f"{rows_plain_ms:.2f} ms; bound {rows_bound[0]:.4f} ms "
-          f"(special-function ops {rows_bound[1]:.4f} ms, bytes "
-          f"{rows_bound[2]:.4f} ms)")
+    step_bound = moment_bound_ms(
+        d_w, d_w, m_w, 4 * (m_w * d_w + 3 * d_w * d_w), sms, clock_mhz)
+    print(f"B2 one ordering step at (m={m_w}, d={d_w}) in {n_slabs} slabs: "
+          f"{step_ms:.4f} ms per launch (median of 50, CUDA events); the "
+          f"same sums as {n_slabs} per-slab launches {per_slab_ms:.4f} ms; "
+          f"plain version {step_plain_ms:.2f} ms; bound {step_bound[0]:.4f} "
+          f"ms (special-function ops {step_bound[1]:.4f} ms, bytes "
+          f"{step_bound[2]:.4f} ms)")
+    print(f"B2 one slab (m={sw.chunk}, d={d_w}, rows={d_w}): {rows_ms:.4f} ms "
+          f"per launch (median of 50, CUDA events); bound "
+          f"{rows_bound[0]:.4f} ms")
     del xw, cw, slab, s1, s2, t1, t2, q1, q2, w1, w2
 
     # 4. kernel B3 (fused standardize + sums from raw X) against its plain
@@ -483,6 +635,18 @@ def main() -> int:
           f"off-diagonal err {vs_b1:.3e} (tolerance {ATOL_F32})")
     if vs_b1 > ATOL_F32:
         fail(f"B3 and B1 disagree on the same values: {vs_b1}")
+    # Exactly the same values (mean 0, 1/std 1 leave x_std as it is): one
+    # integrand header, one summation order, so B3's sums are B2's bits.
+    zero, one = torch.zeros(d, device=dev), torch.ones(d, device=dev)
+    z1, z2 = fused_stats.fused_moment_sums(x_std, zero, one, c, 0, d)
+    r1, r2 = pairwise_stats.pairwise_moment_sums_rows(x_std, c, 0, d)
+    torch.cuda.synchronize()
+    b3_bits = torch.equal(z1, r1) and torch.equal(z2, r2)
+    print(f"B3 on the standardized X (mean 0, 1/std 1) equals B2's sums "
+          f"bit for bit: {b3_bits}")
+    if not b3_bits:
+        fail("B3 and B2 sums differ on the same standardized values")
+    del z1, z2, r1, r2
     fused_plain_ms = cuda_ms(
         lambda: fused_stats.fused_moment_sums_plain(x_full, mu_full,
                                                     rstd_full, c), 2)
@@ -672,17 +836,59 @@ def main() -> int:
     stream_b1 = pairwise_stats.launches
     for j, r in enumerate(refits):
         print(f"stream refit {j}: {r['seconds']:.3f} s, B2 launches "
-              f"{r['launches']} ({sw.d} steps x {n_slabs} slabs of "
-              f"{cfg.moment_chunk} rows), {r['delta'].summary()}")
+              f"{r['launches']} (one per ordering step, each over "
+              f"{n_slabs} slabs of {cfg.moment_chunk} rows), "
+              f"{r['delta'].summary()}")
     print(f"stream {sw.name}: {n_chunks} chunks, {len(refits)} refits in "
           f"{stream_s:.3f} s; B2 launches {stream_launches}, B1 launches "
           f"{stream_b1}")
     if len(refits) != n_chunks - sw.window_chunks + 1:
         fail(f"expected {n_chunks - sw.window_chunks + 1} refits, got "
              f"{len(refits)}")
-    if stream_b1 or any(r["launches"] != sw.d * n_slabs for r in refits):
-        fail(f"expected {sw.d * n_slabs} B2 launches and no B1 launch per "
-             f"refit")
+    if stream_b1 or any(r["launches"] != sw.d for r in refits):
+        fail(f"expected {sw.d} B2 launches (one per ordering step) and no "
+             f"B1 launch per refit")
+    # One more refit of the last window, traced: B2's kernel time per refit
+    # and the device's idle share. A refit leaves the window's state as it
+    # is; the tracer's own cost is in this refit's wall time.
+    prof_wall, prof_busy, prof_kernels = device_busy(session.rolling.refit)
+    if prof_busy is None:
+        print("stream refit traced: torch.profiler shows no device time; "
+              "B2 timed with CUDA events around each launch instead")
+        spans = []
+        real_slabs = pairwise_stats.pairwise_moment_sums_slabs
+
+        def timed_slabs(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real_slabs(*args, **kw)
+            e1.record()
+            spans.append((e0, e1))
+            return out
+
+        pairwise_stats.pairwise_moment_sums_slabs = timed_slabs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.rolling.refit()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+        pairwise_stats.pairwise_moment_sums_slabs = real_slabs
+        refit_b2_s = sum(a.elapsed_time(b) for a, b in spans) * 1e-3
+        refit_busy_s, busy_what = refit_b2_s, "B2 launches only"
+    else:
+        refit_b2_s = sum(t for name, t in prof_kernels.items()
+                         if "pair_partials" in name or "reduce_slabs" in name)
+        refit_busy_s, busy_what = prof_busy, "all device activity"
+        top = sorted(prof_kernels.items(), key=lambda kv: -kv[1])[:6]
+        print("stream refit traced, device time by kernel: " + "; ".join(
+            f"{name[:60]} {t * 1e3:.2f} ms" for name, t in top))
+    refit_idle = 1.0 - refit_busy_s / prof_wall
+    print(f"stream refit traced (torch.profiler): {prof_wall:.3f} s wall, "
+          f"B2 kernel time {refit_b2_s * 1e3:.2f} ms ({sw.d} launches, "
+          f"{refit_b2_s / prof_wall:.1%} of the refit), device busy "
+          f"{refit_busy_s * 1e3:.2f} ms ({busy_what}), idle share "
+          f"{refit_idle:.1%}")
     # Each refit against the from-scratch fit of the same window: equal
     # orders (thetas then within ATOL_STREAM), or orders that part only
     # at ties, which the walk below shows.
@@ -776,6 +982,11 @@ def main() -> int:
 
     # 9. kernels line: launches are those of each kernel's path (the
     # lingam-1m-100 fit, the rolling stream, B3's entry point).
+    def regs(*entries):
+        return {e: ptxas[e] for e in entries if e in ptxas}
+
+    b12_ptxas = regs("pair_partials<4>", "pair_partials<2>",
+                     "pair_partials<1>", "reduce_slabs")
     print(json.dumps({"kernels": [{
         "name": "pairwise_moments",
         "route": "cuda",
@@ -788,19 +999,32 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
+        "shape": f"{m}x{d}",
+        "ms_3999x487": var_b1_ms,
+        "plain_ms_3999x487": var_b1_plain_ms,
+        "bound_ms_3999x487": var_b1_bound[0],
+        "max_abs_err_3999x487": var_err,
+        "ptxas": b12_ptxas,
     }, {
         "name": "pairwise_moment_sums_rows",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pairwise_moments.cu",
         "replaces": "src/repro/kernels/pairwise_stats.py:113",
         "launches": stream_launches,
-        "max_abs_err": rows_err,
-        "ms": rows_ms,
-        "plain_ms": rows_plain_ms,
-        "bound_ms": rows_bound[0],
-        "bound_by": ("operations" if rows_bound[1] >= rows_bound[2]
+        "max_abs_err": win_err,
+        "ms": step_ms,
+        "plain_ms": step_plain_ms,
+        "bound_ms": step_bound[0],
+        "bound_by": ("operations" if step_bound[1] >= step_bound[2]
                      else "bytes"),
         "library_ms": None,
+        "shape": f"{m_w}x{d_w} in {n_slabs} slabs of {sw.chunk}",
+        "per_slab_launches_ms": per_slab_ms,
+        "slab_ms": rows_ms,
+        "slab_bound_ms": rows_bound[0],
+        "refit_kernel_ms": refit_b2_s * 1e3,
+        "refit_idle_share": refit_idle,
+        "ptxas": b12_ptxas,
     }, {
         "name": "fused_moment_sums",
         "route": "cuda",
@@ -817,6 +1041,9 @@ def main() -> int:
         "bfloat16_ms": fused["bfloat16"]["ms"],
         "bfloat16_bound_ms": fused["bfloat16"]["bound"][0],
         "bfloat16_max_abs_err": fused["bfloat16"]["err"],
+        "shape": f"{m}x{d}",
+        "ptxas": regs("fused_partials<float>", "fused_partials<bfloat16>",
+                      "reduce_splits"),
     }]}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s (test shapes worst err: B1 "

@@ -46,10 +46,10 @@ class FitConfig:
 
     ``moment_chunk``: when set, the ordering's pairwise moments
     accumulate over (moment_chunk, d) sample slabs
-    (``ops.pairwise_moments_chunked``: one row-tile kernel launch per
-    slab on the card), so the plain versions' residual intermediate is
-    O(chunk * d^2) whatever m is. Valid with backend ``None``,
-    ``"cuda"`` or ``"blocked"``.
+    (``ops.pairwise_moments_chunked``: on the card one row-tile kernel
+    launch over all the slabs), so the plain versions' residual
+    intermediate is O(chunk * d^2) whatever m is. Valid with backend
+    ``None``, ``"cuda"`` or ``"blocked"``.
 
     ``prune_kwargs`` is stored as a sorted tuple of (key, value) pairs so
     the config stays hashable; a dict is normalized on construction.
@@ -97,8 +97,11 @@ class FitResult:
     resid_var: torch.Tensor  # (d,) f32 -- Var(x_i - B_i x) diagnostic
 
     @classmethod
-    def from_numpy(cls, order, adjacency, resid_var, device="cpu"):
-        """A result from numpy arrays (e.g. another implementation's fit)."""
+    def from_numpy(cls, order, adjacency, resid_var, device="cuda"):
+        """A result from numpy arrays (e.g. another implementation's fit),
+        on ``device``: the card unless the caller asks for ``"cpu"``
+        (raises without a card)."""
+        device = resolve_device(device)
         return cls(
             order=torch.tensor(np.asarray(order), dtype=torch.long,
                                device=device),

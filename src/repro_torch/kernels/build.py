@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` holds plain ``extern "C"`` launchers. ``load``
 compiles it with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root (ignored by git), keyed by a
-hash of the source and the flags, and opens it with ``ctypes``. Nothing
-is compiled when this module is imported.
+hash of the source, the shared headers ``csrc/*.cuh`` it may include
+and the flags, and opens it with ``ctypes``. Nothing is compiled when
+this module is imported.
 """
 
 from __future__ import annotations
@@ -43,15 +44,23 @@ def _nvcc() -> str:
     return found
 
 
+def source_key(name: str, csrc: Path = CSRC) -> str:
+    """Build key of ``csrc/<name>.cu``: a hash of the source, of every
+    header ``csrc/*.cuh`` (by name and content), and of the flags, so a
+    changed header never loads a stale library."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{key}.so"
+    out = BUILD_DIR / f"{name}-{source_key(name)}.so"
     if out.exists():
         build_info[name] = {"seconds": 0.0, "log": ""}
     else:

@@ -13,8 +13,10 @@
 // all d columns,
 //
 //   u_ij(s) = (z_i(s) - C_ij z_j(s)) / sqrt(max(1 - C_ij^2, 1e-12))
-//   S1_ij   = sum_s log cosh u_ij(s)      = |u| + log1p(exp(-2|u|)) - log 2
+//   S1_ij   = sum_s log cosh u_ij(s)
 //   S2_ij   = sum_s u_ij(s) exp(-u_ij(s)^2 / 2)
+//
+// with the integrands of moment_terms.cuh, the header B1/B2 include too.
 //
 // X is the raw sample-major (m, d) matrix, row-major, float32 or bfloat16
 // (a template over the input type, converted with __bfloat162float): the
@@ -22,27 +24,29 @@
 // halves the bytes read. Samples at index >= m are masked by index, so the
 // reference's zero-padded tail is never formed.
 //
-// What bounds it on this card: the same transcendental work as B1 (two exp and
-// one log1p per (pair, sample) term), so bfloat16 input halves the bytes but
+// What bounds it on this card: the same special-function work as B1 (three
+// MUFU ops per (pair, sample) term), so bfloat16 input halves the bytes but
 // not the special-function work; the bytes are far below the bound either way.
 //
-// Work split and summation order are B1's (see pairwise_moments.cu): one
-// thread per pair, 16x16 pair tiles, 128-sample sub-sums added into a running
-// total, the sample axis split over n_split blocks (a function of m alone,
-// chosen by the Python wrapper) whose partials a second kernel adds in fixed
-// order. The device code below is a copy of B1's with the standardization
-// added to the staging loop; on the same standardized values it gives B1's
-// sums. Both launchers return cudaGetLastError().
+// Work split: one thread per pair, 16x16 pair tiles, the chunk staged in
+// shared memory with plain loads. Summation order is B1's (see
+// pairwise_moments.cu): 128-sample sub-sums added into a running total, the
+// sample axis split over n_split blocks (a function of m alone, chosen by the
+// Python wrapper) whose partials a second kernel adds in fixed order. The
+// integrands and pair factors are moment_terms.cuh's, with every float
+// operation pinned, so on the same standardized values B3 gives B1's sums bit
+// for bit whatever the two kernels' tilings. Both launchers return
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "moment_terms.cuh"
 
 namespace {
 
 constexpr int kTile = 16;    // pair tile edge: 16 x 16 threads
 constexpr int kChunk = 128;  // samples per sub-sum (ACCUM_CHUNK)
-constexpr float kLog2 = 0.6931471805599453f;
-constexpr float kEps = 1e-12f;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -71,7 +75,7 @@ fused_partials_kernel(const T* __restrict__ x, const float* __restrict__ mu,
 
   float cij = 0.0f;
   if (i < rows && j < d) cij = c[(long long)(row0 + i) * d + j];
-  const float inv = 1.0f / sqrtf(fmaxf(1.0f - cij * cij, kEps));
+  const moment_terms::PairCoef coef = moment_terms::pair_coef(cij);
 
   // The staging loop steps k by kTile * kTile, a multiple of kTile, so thread
   // t always stages variable v = t % kTile: its constants are loaded once.
@@ -112,13 +116,10 @@ fused_partials_kernel(const T* __restrict__ x, const float* __restrict__ mu,
     float sub1 = 0.0f;
     float sub2 = 0.0f;
     for (int s = 0; s < n; ++s) {
-      const float u = (xi_s[s][ti] - cij * xj_s[s][tj]) * inv;
-      const float au = fabsf(u);
-      sub1 += au + log1pf(expf(-2.0f * au)) - kLog2;
-      sub2 += u * expf(-0.5f * u * u);
+      moment_terms::add_term(xi_s[s][ti], xj_s[s][tj], coef, sub1, sub2);
     }
-    acc1 += sub1;
-    acc2 += sub2;
+    acc1 = __fadd_rn(acc1, sub1);
+    acc2 = __fadd_rn(acc2, sub2);
     __syncthreads();
   }
 
@@ -139,8 +140,8 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part1,
   float a1 = 0.0f;
   float a2 = 0.0f;
   for (int k = 0; k < n_split; ++k) {  // fixed order: deterministic
-    a1 += part1[(long long)k * n + idx];
-    a2 += part2[(long long)k * n + idx];
+    a1 = __fadd_rn(a1, part1[(long long)k * n + idx]);
+    a2 = __fadd_rn(a2, part2[(long long)k * n + idx]);
   }
   out1[idx] = a1;
   out2[idx] = a2;

@@ -16,7 +16,8 @@ accumulation order.
 
 The streaming entries return *sums*: ``pairwise_moment_sums_rows`` for a
 row tile (kernel B2 on the card), ``pairwise_moment_sums_chunked`` over
-(chunk, d) sample slabs (one B2 launch per slab, added in fixed order),
+(chunk, d) sample slabs (one B2 launch over all slabs, the slab sums
+added in fixed order),
 and ``fused_moment_rows`` from raw X (kernel B3). ``pairwise_moments_chunked``
 divides the chunked sums by m.
 """
@@ -135,28 +136,38 @@ def pairwise_moment_sums_rows(x_std, c, row_start: int, tile: int, *,
 def pairwise_moment_sums_chunked(x_std, c, *, chunk: int = 512,
                                  backend: str = None):
     """Pairwise residual moment *sums* (S1, S2), each (d, d), accumulated
-    over (chunk, d) sample slabs.
+    over (chunk, d) sample slabs, the slab sums added in fixed order in
+    float32.
 
-    The streaming entry: each slab is a row view of the sample-major
-    ``x_std`` (no copy) and gets one :func:`pairwise_moment_sums_rows`
-    call over all d rows -- one kernel B2 launch on the card -- and the
-    slab sums are added in fixed order in float32. The kernel's split
+    The streaming entry. On the card (backend ``None`` or ``"cuda"``) it
+    is one launch of kernel B2 over every slab
+    (``pairwise_stats.pairwise_moment_sums_slabs``), equal bit for bit to
+    one :func:`pairwise_moment_sums_rows` call per slab added in order,
+    which is what its plain version does on the CPU. Each slab's split
     plan depends on the slab's sample count alone, so a pair's sums are
     the same at every buffer width. ``chunk`` bounds the residual
     intermediate of the plain versions at O(chunk * d^2).
     """
+    check_backend(backend)
+    if backend == "ref":
+        raise ValueError("chunked moment sums have no 'ref' backend")
     m, d = x_std.shape
     chunk = max(1, min(chunk, m))
     x_std = x_std.contiguous()
     c = c.contiguous()
-    s1, s2 = pairwise_moment_sums_rows(x_std[:chunk], c, 0, d,
-                                       backend=backend)
-    for k0 in range(chunk, m, chunk):
-        t1, t2 = pairwise_moment_sums_rows(x_std[k0:k0 + chunk], c, 0, d,
-                                           backend=backend)
-        s1 = s1 + t1
-        s2 = s2 + t2
-    return s1, s2
+    if backend == "blocked":
+        s1, s2 = pairwise_moment_sums_blocked(x_std[:chunk], c)
+        for k0 in range(chunk, m, chunk):
+            t1, t2 = pairwise_moment_sums_blocked(x_std[k0:k0 + chunk], c)
+            s1 = s1 + t1
+            s2 = s2 + t2
+        return s1, s2
+    if backend == "cuda" and not x_std.is_cuda:
+        raise ValueError(
+            f"backend 'cuda' needs tensors on a CUDA device, got "
+            f"{x_std.device}; use backend=None or 'blocked' on the CPU"
+        )
+    return pairwise_stats.pairwise_moment_sums_slabs(x_std, c, chunk)
 
 
 def pairwise_moments_chunked(x_std, c, *, chunk: int = 512,

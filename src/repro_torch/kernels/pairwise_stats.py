@@ -8,30 +8,38 @@ of the standardized regression residual
     M1[i,j] = E_s[log cosh u_ij]
     M2[i,j] = E_s[u_ij * exp(-u_ij^2 / 2)]
 
-The kernel (``csrc/pairwise_moments.cu``) replaces the Pallas TPU kernel
-``repro.kernels.pairwise_stats._kernel`` launched by
-``pairwise_moments_pallas``. It produces moment *sums* for a row tile
-``[row0, row0 + rows)`` against all columns, split over the sample axis
-into ``n_split`` ranges that a second kernel adds in fixed order, so
-results are bit-identical from run to run. Two wrappers share the
-launcher:
+The kernel (``csrc/pairwise_moments.cu``, integrands in
+``csrc/moment_terms.cuh``) replaces the Pallas TPU kernel
+``repro.kernels.pairwise_stats._kernel``. It produces moment *sums* for a
+row tile ``[row0, row0 + rows)`` against all columns over a sample axis
+cut into slabs (:class:`SlabPlan`), each slab into the splits of
+``split_plan(slab length)``; a second kernel adds each slab's splits in
+fixed order, then the slab sums in slab order, so results are
+bit-identical from run to run and at every tile shape. Three wrappers
+share the launcher:
 
   * ``pairwise_moments`` -- the reference's ``pairwise_moments_pallas``
-    (kernel B1): all d rows, divided by m in the reduce kernel;
+    (kernel B1): all d rows, one slab, divided by m in the reduce kernel;
   * ``pairwise_moment_sums_rows`` -- the reference's
-    ``pairwise_moment_sums_rows`` (kernel B2): the *sums* of a row tile,
-    scale 1. The chunked streaming path (``ops.pairwise_moment_sums_chunked``)
-    launches it once per sample slab, on a row view of the sample-major X.
+    ``pairwise_moment_sums_rows`` (kernel B2): the *sums* of a row tile
+    over one slab, scale 1;
+  * ``pairwise_moment_sums_slabs`` -- B2 over (slab, d) sample slabs in
+    one launch: the chunked streaming path
+    (``ops.pairwise_moment_sums_chunked``), once per ordering step. It
+    equals the per-slab ``pairwise_moment_sums_rows`` sums added in slab
+    order, bit for bit.
 
 ``pairwise_moment_sums_plain`` is the kernel's plain-torch version: the
 same split plan, the same 128-wide sample sub-sums, the same fixed order
-of splits. The wrappers take it only for tensors on the CPU; for a CUDA
-tensor they launch the kernel or raise.
+of splits (the slab wrapper's plain version adds it slab by slab). The
+wrappers take it only for tensors on the CPU; for a CUDA tensor they
+launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -42,17 +50,25 @@ from . import build
 from .nonlinearity import nonlinear_terms
 
 EPS = 1e-12
-TILE = 16          # pair tile edge of one CUDA block
 ACCUM_CHUNK = 128  # samples per sub-sum, as in the reference
-# Sample splits per launch. With the 49 pair tiles of d = 100 this gives
-# 1568 blocks, over 11 per SM of a 132-SM H100.
-N_SPLIT = 32
+# Sample splits per slab. With the 5 blocks of 128 threads that hold the
+# 625 4x4 pair blocks of d = 100, the 127 splits of m = 1e6 give 635
+# blocks, about 4.8 per SM of a 132-SM H100.
+N_SPLIT = 128
+TILES = (4, 2, 1)  # pair-block edges the kernel is built for
+# The tile choice asks for this many threads per SM over the whole grid
+# (16 warps) before it takes a larger pair block.
+FILL_THREADS_PER_SM = 512
+H100_SMS = 132
+# Bytes of the two shared-memory stage buffers a block aims to stay under:
+# three blocks of the 4x4 instance (167 registers a thread) fit an SM.
+STAGE_BYTES = 64 * 1024
 # Elements of one (rows, d, samples) temporary in the plain version.
 _PLAIN_BUDGET = 1 << 22
 
 # Kernel launches through each wrapper (one per call that runs on the card):
 # ``launches`` counts pairwise_moments (B1), ``rows_launches``
-# pairwise_moment_sums_rows (B2).
+# pairwise_moment_sums_rows and pairwise_moment_sums_slabs (B2).
 launches = 0
 rows_launches = 0
 
@@ -73,6 +89,76 @@ def split_plan(m: int, n_split: int = None):
     n_split = max(1, min(int(n_split), chunks))
     per_split = math.ceil(chunks / n_split)
     return math.ceil(chunks / per_split), per_split
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabPlan:
+    """The kernel's sample axis: ``n_full`` slabs of ``slab`` samples,
+    then a ragged slab of ``tail`` samples (none when 0), each cut into
+    ``split_plan(its length)`` splits. Grid index z walks the full slabs'
+    splits in order, then the tail's."""
+
+    slab: int
+    n_full: int
+    full_splits: int
+    full_per: int
+    tail: int
+    tail_splits: int
+    tail_per: int
+
+    @property
+    def n_z(self) -> int:
+        """Splits over all slabs: the grid's sample extent."""
+        return self.n_full * self.full_splits + self.tail_splits
+
+    def ranges(self):
+        """[(slab index, first sample, end sample)] for z = 0, 1, ...:
+        the kernel's own decoding of z, for the tests."""
+        out = []
+        for z in range(self.n_z):
+            if z < self.n_full * self.full_splits:
+                slab, k = divmod(z, self.full_splits)
+                base, length, per = slab * self.slab, self.slab, self.full_per
+            else:
+                slab, k = self.n_full, z - self.n_full * self.full_splits
+                base, length, per = slab * self.slab, self.tail, self.tail_per
+            begin = base + k * per * ACCUM_CHUNK
+            out.append((slab, begin,
+                        min(begin + per * ACCUM_CHUNK, base + length)))
+        return out
+
+
+def slab_plan(m: int, slab: int = None, n_split: int = None) -> SlabPlan:
+    """Cut m samples into slabs of ``slab`` (all of m by default), the
+    last one ragged, each slab split by :func:`split_plan` of its own
+    length (``n_split`` passed on)."""
+    slab = m if slab is None else max(1, min(int(slab), m))
+    n_full, tail = divmod(m, slab)
+    full_splits, full_per = split_plan(slab, n_split)
+    tail_splits, tail_per = split_plan(tail, n_split) if tail else (0, 0)
+    return SlabPlan(slab, n_full, full_splits, full_per, tail, tail_splits,
+                    tail_per)
+
+
+def tile_for(rows: int, d: int, n_z: int, sms: int = H100_SMS) -> int:
+    """Pair-block edge T of the launch: the largest of ``TILES`` whose
+    pair blocks over all ``n_z`` splits give every SM at least
+    ``FILL_THREADS_PER_SM`` threads. T does not change a pair's sums."""
+    for t in TILES[:-1]:
+        blocks = math.ceil(rows / t) * math.ceil(d / t)
+        if blocks * n_z >= sms * FILL_THREADS_PER_SM:
+            return t
+    return TILES[-1]
+
+
+def stage_for(d: int) -> int:
+    """Samples per shared-memory stage: the largest divisor of 128 up to
+    32 whose two buffers of rows (padded to 4 floats) fit STAGE_BYTES."""
+    ld = -(-d // 4) * 4
+    for n in (32, 16, 8, 4, 2):
+        if 2 * n * ld * 4 <= STAGE_BYTES:
+            return n
+    return 1
 
 
 def _check(x_std, c, row0, rows):
@@ -138,42 +224,50 @@ def _kernel_lib():
     lib.pairwise_moment_partials.restype = ctypes.c_int
     lib.pairwise_moment_partials.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.pairwise_moment_reduce.restype = ctypes.c_int
     lib.pairwise_moment_reduce.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p,
     ]
     return lib
 
 
-def _launch_sums(x_std, c, row0, rows, n_split, scale):
+def _launch_sums(x_std, c, row0, rows, plan, scale):
     if x_std.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(
             f"the CUDA kernel takes float32, got {x_std.dtype} and {c.dtype}"
         )
     if not (x_std.is_contiguous() and c.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous x_std and c")
-    m, d = x_std.shape
-    n_split, per_split = split_plan(m, n_split)
+    d = x_std.shape[1]
     lib = _kernel_lib()
     with torch.cuda.device(x_std.device):
+        sms = torch.cuda.get_device_properties(
+            x_std.device).multi_processor_count
         stream = torch.cuda.current_stream().cuda_stream
-        part1 = torch.empty((n_split, rows, d), device=x_std.device)
+        part1 = torch.empty((plan.n_z, rows, d), device=x_std.device)
         part2 = torch.empty_like(part1)
         out1 = torch.empty((rows, d), device=x_std.device)
         out2 = torch.empty_like(out1)
         err = lib.pairwise_moment_partials(
             x_std.data_ptr(), c.data_ptr(), part1.data_ptr(),
-            part2.data_ptr(), m, d, row0, rows, per_split, n_split, stream,
+            part2.data_ptr(), d, row0, rows, plan.slab, plan.n_full,
+            plan.full_splits, plan.full_per, plan.tail, plan.tail_splits,
+            plan.tail_per, tile_for(rows, d, plan.n_z, sms), stage_for(d),
+            stream,
         )
         if err:
             raise RuntimeError(f"pairwise_moment_partials: CUDA error {err}")
         err = lib.pairwise_moment_reduce(
             part1.data_ptr(), part2.data_ptr(), out1.data_ptr(),
-            out2.data_ptr(), n_split, rows * d, scale, stream,
+            out2.data_ptr(), rows * d, plan.n_full, plan.full_splits,
+            plan.tail_splits, scale, stream,
         )
         if err:
             raise RuntimeError(f"pairwise_moment_reduce: CUDA error {err}")
@@ -194,7 +288,8 @@ def pairwise_moments(x_std, c, *, n_split=None):
     _check(x_std, c, 0, d)
     inv_m = float(np.float32(1.0 / m))  # the reference's f32 1/m
     if x_std.is_cuda:
-        out = _launch_sums(x_std, c, 0, d, n_split, inv_m)
+        out = _launch_sums(x_std, c, 0, d, slab_plan(m, n_split=n_split),
+                           inv_m)
         launches += 1
         return out
     if x_std.device.type != "cpu":
@@ -218,10 +313,41 @@ def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None):
     global rows_launches
     _check(x_std, c, row0, rows)
     if x_std.is_cuda:
-        out = _launch_sums(x_std, c, row0, rows, n_split, 1.0)
+        out = _launch_sums(x_std, c, row0, rows,
+                           slab_plan(x_std.shape[0], n_split=n_split), 1.0)
         rows_launches += 1
         return out
     if x_std.device.type != "cpu":
         raise ValueError(f"no pairwise-moment kernel for {x_std.device}")
     return pairwise_moment_sums_plain(x_std, c, row0=row0, rows=rows,
                                       n_split=n_split)
+
+
+def pairwise_moment_sums_slabs(x_std, c, slab, *, row0=0, rows=None):
+    """Pairwise residual moment *sums* (S1, S2), each (rows, d) float32,
+    of the row tile ``[row0, row0 + rows)``, over (slab, d) sample slabs
+    of ``x_std`` (the last one ragged): the slab sums of
+    :func:`pairwise_moment_sums_rows`, added in slab order.
+
+    On a CUDA tensor this is one launch of the kernel (float32,
+    contiguous, or it raises) over every slab's splits, equal bit for bit
+    to the per-slab launches added in order; on a CPU tensor it runs the
+    plain version slab by slab.
+    """
+    global rows_launches
+    m, d = x_std.shape
+    rows = d - row0 if rows is None else rows
+    _check(x_std, c, row0, rows)
+    plan = slab_plan(m, slab)
+    if x_std.is_cuda:
+        out = _launch_sums(x_std, c, row0, rows, plan, 1.0)
+        rows_launches += 1
+        return out
+    if x_std.device.type != "cpu":
+        raise ValueError(f"no pairwise-moment kernel for {x_std.device}")
+    s1 = s2 = None
+    for k0 in range(0, m, plan.slab):
+        t1, t2 = pairwise_moment_sums_plain(x_std[k0:k0 + plan.slab], c,
+                                            row0=row0, rows=rows)
+        s1, s2 = (t1, t2) if s1 is None else (s1 + t1, s2 + t2)
+    return s1, s2

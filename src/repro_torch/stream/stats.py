@@ -31,6 +31,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import api
+
 
 @dataclasses.dataclass
 class MomentState:
@@ -60,8 +62,12 @@ class MomentState:
         return covariance(self)
 
     @classmethod
-    def from_numpy(cls, count, mean, m2, device="cpu") -> "MomentState":
-        """A state from host arrays (e.g. another implementation's)."""
+    def from_numpy(cls, count, mean, m2, device="cuda") -> "MomentState":
+        """A state from host arrays (e.g. another implementation's), on
+        ``device``: the card unless the caller asks for ``"cpu"``
+        (raises without a card)."""
+        device = api.resolve_device(device)
+
         def f32(a):
             return torch.tensor(np.asarray(a, dtype=np.float32),
                                 device=device)
@@ -73,8 +79,11 @@ class MomentState:
                 self.m2.cpu().numpy())
 
 
-def init(d: int, device="cpu") -> MomentState:
-    """Empty state over d variables (identity of ``merge``)."""
+def init(d: int, device="cuda") -> MomentState:
+    """Empty state over d variables (identity of ``merge``), on
+    ``device``: the card unless the caller asks for ``"cpu"`` (raises
+    without a card)."""
+    device = api.resolve_device(device)
     return MomentState(
         count=torch.zeros((), dtype=torch.float32, device=device),
         mean=torch.zeros((d,), dtype=torch.float32, device=device),

@@ -20,7 +20,7 @@ rows, so the window slides in *chunks*:
         the residual mean/covariance derived from the same state; only
         the nonlinear ordering moments re-read the rows, over
         ``FitConfig.moment_chunk`` sample slabs (one row-tile kernel
-        launch per slab and ordering step on the card).
+        launch per ordering step on the card, over all the slabs).
 
 :func:`direct_window_fit` is the from-scratch oracle: the identical
 estimator from a direct two-pass over the whole window (no merges, no

@@ -174,7 +174,7 @@ def test_fit_fn_matches_reference(method, kwargs):
     # Pruning alone, from the reference's order.
     ref_order = api.FitResult.from_numpy(
         np.asarray(want.order), np.asarray(want.adjacency),
-        np.asarray(want.resid_var)).order
+        np.asarray(want.resid_var), device="cpu").order
     fin = api.finish_fit(torch.from_numpy(gt.data), ref_order, cfg)
     np.testing.assert_allclose(fin.adjacency.numpy(),
                                np.asarray(want.adjacency), atol=ATOL_FIT)
@@ -218,7 +218,8 @@ def test_facade_on_cpu_recovers_true_dag(seed):
 
 
 def test_fit_result_numpy_round_trip():
-    res = api.FitResult.from_numpy([2, 0, 1], np.eye(3), np.ones(3))
+    res = api.FitResult.from_numpy([2, 0, 1], np.eye(3), np.ones(3),
+                                 device="cpu")
     order, adj, rv = res.to_numpy()
     assert res.order.dtype == torch.long
     assert res.adjacency.dtype == torch.float32
@@ -235,6 +236,12 @@ def test_no_card_fit_raises_instead_of_running_on_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DirectLiNGAM().fit(x)
     assert not ran
+
+
+def test_fit_result_from_numpy_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.FitResult.from_numpy([0, 1], np.eye(2), np.ones(2))
 
 
 def test_backend_names():

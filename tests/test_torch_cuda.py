@@ -8,7 +8,8 @@ has only PyTorch and the CUDA toolkit:
 Skips without a card. Tolerances: off-diagonal moments within atol 2e-6
 (B1), row-tile sums within 2e-6 * m (B2) and fused sums within 4e-6 * m
 (B3), the reference's own kernel tolerances; repeat launches
-bit-identical.
+bit-identical, and bit-identical across buffer widths, tile shapes and
+the slab-structured launch against per-slab launches.
 """
 
 import numpy as np
@@ -56,6 +57,60 @@ def test_cuda_kernel_matches_plain_version(cuda_device, m, d, n_split):
     for got, want in ((k1, p1 * inv_m), (k2, p2 * inv_m)):
         err = (got - want)[mask].abs().max().item()
         assert err <= ATOL, err
+
+
+def _standardized(m, d, device):
+    x = np.random.default_rng(m * 1000 + d).laplace(size=(m, d))
+    xs = ops.standardize(torch.tensor(x, dtype=torch.float32, device=device))
+    return xs.contiguous(), ops.correlation(xs).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,width", [(20_000, 100, 75), (20_000, 100, 56),
+                                       (3999, 487, 243)])
+def test_cuda_kernel_is_width_and_tile_invariant(cuda_device, monkeypatch, m,
+                                                 d, width):
+    """A pair's moments do not depend on the buffer width nor on the pair
+    block the launcher picks: bit for bit."""
+    xs, c = _standardized(m, d, cuda_device)
+    f1, f2 = pairwise_stats.pairwise_moments(xs, c)
+    w1, w2 = pairwise_stats.pairwise_moments(
+        xs[:, :width].contiguous(), c[:width, :width].contiguous())
+    assert torch.equal(w1, f1[:width, :width])
+    assert torch.equal(w2, f2[:width, :width])
+    for tile in pairwise_stats.TILES:
+        monkeypatch.setattr(pairwise_stats, "tile_for",
+                            lambda *a, t=tile, **k: t)
+        t1, t2 = pairwise_stats.pairwise_moments(xs, c)
+        assert torch.equal(t1, f1) and torch.equal(t2, f2), tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,slab", [(2048, 487, 256), (2000, 487, 256),
+                                      (333, 10, 128), (777, 40, 96)])
+def test_cuda_slab_launch_equals_per_slab_loop(cuda_device, m, d, slab):
+    """One slab-structured B2 launch equals the per-slab launches added
+    in slab order, bit for bit, ragged last slab included."""
+    xs, c = _standardized(m, d, cuda_device)
+    before = pairwise_stats.rows_launches
+    s1, s2 = pairwise_stats.pairwise_moment_sums_slabs(xs, c, slab)
+    torch.cuda.synchronize()
+    assert pairwise_stats.rows_launches == before + 1
+    t1 = t2 = None
+    for k0 in range(0, m, slab):
+        u1, u2 = pairwise_stats.pairwise_moment_sums_rows(xs[k0:k0 + slab],
+                                                          c, 0, d)
+        t1, t2 = (u1, u2) if t1 is None else (t1 + u1, t2 + u2)
+    assert torch.equal(s1, t1) and torch.equal(s2, t2)
+    before = pairwise_stats.rows_launches
+    g1, g2 = ops.pairwise_moment_sums_chunked(xs, c, chunk=slab)
+    assert pairwise_stats.rows_launches == before + 1
+    assert torch.equal(g1, s1) and torch.equal(g2, s2)
+    parts = [pairwise_stats.pairwise_moment_sums_plain(xs[k0:k0 + slab], c)
+             for k0 in range(0, m, slab)]
+    for n, got in enumerate((s1, s2)):
+        want = sum(p[n] for p in parts)
+        assert _offdiag_err(got, want, 0) <= 2e-6 * m
 
 
 @pytest.mark.gpu

@@ -16,6 +16,7 @@ callers mask it.
 """
 
 import functools
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +27,7 @@ from repro.kernels import nonlinearity as jnl
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.tune import Plan
-from repro_torch.kernels import (fused_stats, nonlinearity, ops,
+from repro_torch.kernels import (build, fused_stats, nonlinearity, ops,
                                  pairwise_stats, ref)
 
 torch.set_num_threads(1)
@@ -140,8 +141,80 @@ def test_split_plan_covers_every_chunk_once(m, n_split):
 
 
 def test_split_plan_at_the_main_path_shape():
-    # 7813 chunks of 128 samples in 32 splits of 245 (the last ragged).
-    assert pairwise_stats.split_plan(1_000_000) == (32, 245)
+    # 7813 chunks of 128 samples in 127 splits of 62 (the last ragged).
+    assert pairwise_stats.split_plan(1_000_000) == (127, 62)
+
+
+@pytest.mark.parametrize(
+    "m,slab",
+    [(333, 128), (2048, 256), (2000, 256), (1_000_000, None), (777, 96),
+     (5, 7), (4095, 4095), (65_164, 1000)],
+)
+def test_slab_plan_z_offsets_cover_every_chunk_once(m, slab):
+    """The launcher's z axis: every slab keeps split_plan(its length),
+    its splits follow each other in sample order, and together they
+    cover each 128-sample chunk of each slab once."""
+    plan = pairwise_stats.slab_plan(m, slab)
+    ranges = plan.ranges()
+    assert len(ranges) == plan.n_z
+    assert [r[1] for r in ranges[1:]] == [r[2] for r in ranges[:-1]]
+    assert ranges[0][1] == 0 and ranges[-1][2] == m
+    width = plan.slab
+    for k in range(-(-m // width)):
+        base, end = k * width, min(m, (k + 1) * width)
+        mine = [r for r in ranges if r[0] == k]
+        n, per = pairwise_stats.split_plan(end - base)
+        assert len(mine) == n
+        assert mine[0][1] == base and mine[-1][2] == end
+        for _, begin, stop in mine:
+            assert (begin - base) % pairwise_stats.ACCUM_CHUNK == 0
+            assert 0 < stop - begin <= per * pairwise_stats.ACCUM_CHUNK
+
+
+@pytest.mark.parametrize(
+    "rows,d,n_z,tile",
+    [(100, 100, 127, 4), (487, 487, 32, 4), (487, 487, 16, 4),
+     (243, 243, 32, 4), (75, 75, 127, 2), (56, 56, 127, 2),
+     (42, 42, 127, 1), (8, 8, 127, 1), (100, 100, 1, 1)],
+)
+def test_tile_choice_by_width(rows, d, n_z, tile):
+    """The largest pair block that still gives every SM 16 warps; at the
+    main path's widths 100 and 487 that is 4 x 4, with no padded pair at
+    d = 100 and 0.4% at d = 487."""
+    assert pairwise_stats.tile_for(rows, d, n_z) == tile
+    blocks = -(-rows // tile) * -(-d // tile)
+    if tile > 1:
+        assert (blocks * n_z
+                >= pairwise_stats.H100_SMS
+                * pairwise_stats.FILL_THREADS_PER_SM)
+    padded = blocks * tile * tile / (rows * d) - 1
+    assert padded <= {100: 0.0, 487: 0.005}.get(d, 0.1)
+
+
+@pytest.mark.parametrize("d,stage", [(4, 32), (100, 32), (256, 32),
+                                     (487, 16), (1000, 8), (5000, 1)])
+def test_stage_samples_by_width(d, stage):
+    got = pairwise_stats.stage_for(d)
+    assert got == stage and pairwise_stats.ACCUM_CHUNK % got == 0
+    ld = -(-d // 4) * 4
+    assert got == 1 or 2 * got * ld * 4 <= pairwise_stats.STAGE_BYTES
+
+
+def test_build_key_covers_included_headers(tmp_path):
+    """A changed header under csrc/ changes every source's build key, so
+    a stale library is never loaded; nvcc is not needed to see it."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    before = {n: build.source_key(n, csrc)
+              for n in ("pairwise_moments", "fused_moments")}
+    assert before == {n: build.source_key(n) for n in before}
+    header = csrc / "moment_terms.cuh"
+    header.write_text(header.read_text() + "// touched\n")
+    after = {n: build.source_key(n, csrc) for n in before}
+    assert all(after[n] != before[n] for n in before)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert build.source_key("pairwise_moments", csrc) != after[
+        "pairwise_moments"]
 
 
 def test_standardize_and_correlation_match_reference():
@@ -253,24 +326,26 @@ def test_chunked_plain_version_matches_reference(backend, chunk):
 
 
 def test_chunked_sums_add_one_row_tile_call_per_slab(monkeypatch):
-    """Each slab is one row-tile call on a row view of X (no copy), and
-    the slab sums are added in order; a ragged last slab is masked."""
+    """The chunked entry is one slab-structured call (one kernel launch on
+    a card, none on the CPU) that equals one row-tile call per slab, the
+    slab sums added in order, bit for bit; a ragged last slab is
+    masked."""
     xs, c = (torch.from_numpy(a) for a in _inputs(333, 10))
     calls = []
-    real = pairwise_stats.pairwise_moment_sums_rows
+    real = pairwise_stats.pairwise_moment_sums_slabs
 
-    def spy(x, cc, row0, rows, **kw):
-        calls.append((x.shape[0], x.data_ptr(), row0, rows))
-        return real(x, cc, row0, rows, **kw)
+    def spy(x, cc, slab, **kw):
+        calls.append((x.shape[0], x.data_ptr(), slab))
+        return real(x, cc, slab, **kw)
 
-    monkeypatch.setattr(pairwise_stats, "pairwise_moment_sums_rows", spy)
+    monkeypatch.setattr(pairwise_stats, "pairwise_moment_sums_slabs", spy)
+    before = pairwise_stats.rows_launches
     s1, s2 = ops.pairwise_moment_sums_chunked(xs, c, chunk=128)
-    assert [(n, r0, r) for n, _, r0, r in calls] == [
-        (128, 0, 10), (128, 0, 10), (77, 0, 10)]
-    base = xs.data_ptr()
-    assert [p - base for _, p, _, _ in calls] == [
-        k * 128 * 10 * 4 for k in range(3)]
-    parts = [real(xs[k:k + 128], c, 0, 10) for k in (0, 128, 256)]
+    assert calls == [(333, xs.data_ptr(), 128)]
+    assert pairwise_stats.rows_launches == before  # CPU: the plain version
+    rows = pairwise_stats.pairwise_moment_sums_rows
+    parts = [rows(xs[k:k + 128], c, 0, 10) for k in (0, 128, 256)]
+    assert parts[2][0].shape == (10, 10)
     assert torch.equal(s1, parts[0][0] + parts[1][0] + parts[2][0])
     assert torch.equal(s2, parts[0][1] + parts[1][1] + parts[2][1])
 

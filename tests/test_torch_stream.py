@@ -107,10 +107,11 @@ def test_merge_and_retract_match_reference():
 def test_init_is_merge_identity_and_retract_everything_zeroes():
     x = _chunks(np.random.default_rng(2), 1, 4)[0]
     s = stats.from_chunk(_t(x))
-    for merged in (stats.merge(stats.init(4), s),
-                   stats.merge(s, stats.init(4))):
+    for merged in (stats.merge(stats.init(4, device="cpu"), s),
+                   stats.merge(s, stats.init(4, device="cpu"))):
         _assert_state_close(merged, *_np_state(x))
-    gone = stats.retract_chunk(stats.update_chunk(stats.init(4), x), x)
+    gone = stats.retract_chunk(
+        stats.update_chunk(stats.init(4, device="cpu"), x), x)
     assert float(gone.count) == 0.0
     assert torch.isfinite(gone.mean).all() and torch.isfinite(gone.m2).all()
 
@@ -143,7 +144,7 @@ def test_update_retract_roundtrip(seed, d):
     """Absorb b, later retract b: back on the two-pass state of a, and on
     the reference's own round trip."""
     ca, cb = _chunks(np.random.default_rng(seed), 2, d)
-    s = stats.init(d).update_chunk(ca).update_chunk(cb)
+    s = stats.init(d, device="cpu").update_chunk(ca).update_chunk(cb)
     back = s.retract_chunk(cb)
     _assert_state_close(back, *_np_state(ca))
     js = jstats.retract_chunk(jstats.update_chunk(
@@ -156,7 +157,7 @@ def test_moment_state_numpy_round_trip():
     x = _chunks(np.random.default_rng(3), 1, 3)[0]
     s = stats.from_chunk(_t(x))
     count, mean, m2 = s.to_numpy()
-    again = stats.MomentState.from_numpy(count, mean, m2)
+    again = stats.MomentState.from_numpy(count, mean, m2, device="cpu")
     for a, b in zip((again.count, again.mean, again.m2),
                     (s.count, s.mean, s.m2)):
         assert a.dtype == torch.float32 and torch.equal(a, b)
@@ -281,6 +282,16 @@ def test_rolling_without_a_card_raises(monkeypatch):
         StreamSession("s", StreamConfig(d=D, chunk=CHUNK, window_chunks=WC))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         window.direct_window_fit(_stock_chunks(2), None)
+
+
+def test_moment_store_without_a_card_raises(monkeypatch):
+    """The store's entry points default to the card, like the facades."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stats.init(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stats.MomentState.from_numpy(1.0, np.zeros(4), np.zeros((4, 4)))
+    assert stats.init(4, device="cpu").mean.device.type == "cpu"
 
 
 @pytest.mark.parametrize("n,lags", [(5, 1), (6, 2), (3, 2)])
