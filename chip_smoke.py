@@ -41,9 +41,10 @@ any failure of which exits non-zero:
      ``StreamSession``: 12 chunks of 256 rows, 5 refits (4 after a
      retraction), each held against the from-scratch window fit, one
      walked against ``blocked``, compactions "staged" and "none" equal;
-     B2 launched once per ordering step; one more refit of the last
-     window under ``torch.profiler`` for B2's kernel time per refit and
-     the device's idle share;
+     B2 launched once per ordering step; the last window refit three
+     more times untraced for its wall time and once under
+     ``torch.profiler`` for B2's kernel time and the device's busy time:
+     the idle share is taken over the untraced wall time;
   9. one JSON line listing every ported kernel with its launches on its
      path, error, times, bound and ptxas registers and spills;
  10. last line: {"ok": true, "device": {...}}.
@@ -342,9 +343,9 @@ def main() -> int:
         ptxas.update(ptxas_report(info["log"]))
     for entry, rep in ptxas.items():
         print(f"  ptxas: {entry}: {rep}")
-    built = all(build.build_info[n]["log"] for n in sources)
-    if built and (len(ptxas) != 7 or any(len(r) != 3
-                                         for r in ptxas.values())):
+    # A cached library keeps its nvcc log beside it, so the report is
+    # whole on every run.
+    if len(ptxas) != 7 or any(len(r) != 3 for r in ptxas.values()):
         fail(f"ptxas report incomplete: {ptxas}")
 
     # 2. kernel against its plain version on the card
@@ -848,13 +849,24 @@ def main() -> int:
     if stream_b1 or any(r["launches"] != sw.d for r in refits):
         fail(f"expected {sw.d} B2 launches (one per ordering step) and no "
              f"B1 launch per refit")
-    # One more refit of the last window, traced: B2's kernel time per refit
-    # and the device's idle share. A refit leaves the window's state as it
-    # is; the tracer's own cost is in this refit's wall time.
+    # The last window refit again: three times untraced for its wall time,
+    # then once traced for B2's kernel time and the device's busy time.
+    # The tracer roughly doubles a refit's wall time, so the idle share is
+    # 1 - busy / the untraced median; the traced reading is printed too. A
+    # refit leaves the window's state as it is.
+    refit_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.rolling.refit()
+        torch.cuda.synchronize()
+        refit_walls.append(time.perf_counter() - t0)
+    refit_wall = float(np.median(refit_walls))
     prof_wall, prof_busy, prof_kernels = device_busy(session.rolling.refit)
     if prof_busy is None:
         print("stream refit traced: torch.profiler shows no device time; "
-              "B2 timed with CUDA events around each launch instead")
+              "B2 timed with CUDA events around each launch instead, idle "
+              "share not measured")
         spans = []
         real_slabs = pairwise_stats.pairwise_moment_sums_slabs
 
@@ -875,20 +887,23 @@ def main() -> int:
         prof_wall = time.perf_counter() - t0
         pairwise_stats.pairwise_moment_sums_slabs = real_slabs
         refit_b2_s = sum(a.elapsed_time(b) for a, b in spans) * 1e-3
-        refit_busy_s, busy_what = refit_b2_s, "B2 launches only"
+        refit_idle = None
     else:
         refit_b2_s = sum(t for name, t in prof_kernels.items()
                          if "pair_partials" in name or "reduce_slabs" in name)
-        refit_busy_s, busy_what = prof_busy, "all device activity"
+        refit_idle = 1.0 - prof_busy / refit_wall
         top = sorted(prof_kernels.items(), key=lambda kv: -kv[1])[:6]
         print("stream refit traced, device time by kernel: " + "; ".join(
             f"{name[:60]} {t * 1e3:.2f} ms" for name, t in top))
-    refit_idle = 1.0 - refit_busy_s / prof_wall
-    print(f"stream refit traced (torch.profiler): {prof_wall:.3f} s wall, "
-          f"B2 kernel time {refit_b2_s * 1e3:.2f} ms ({sw.d} launches, "
-          f"{refit_b2_s / prof_wall:.1%} of the refit), device busy "
-          f"{refit_busy_s * 1e3:.2f} ms ({busy_what}), idle share "
-          f"{refit_idle:.1%}")
+        walls = ", ".join(f"{w:.3f}" for w in refit_walls)
+        print(f"stream refit: device busy {prof_busy * 1e3:.2f} ms (all "
+              f"device activity, traced); idle share {refit_idle:.1%} of "
+              f"the untraced median {refit_wall:.3f} s ({walls} s), "
+              f"{1.0 - prof_busy / prof_wall:.1%} of the traced "
+              f"{prof_wall:.3f} s")
+    print(f"stream refit: B2 kernel time {refit_b2_s * 1e3:.2f} ms ({sw.d} "
+          f"launches), {refit_b2_s / refit_wall:.1%} of the untraced median "
+          f"refit {refit_wall:.3f} s")
     # Each refit against the from-scratch fit of the same window: equal
     # orders (thetas then within ATOL_STREAM), or orders that part only
     # at ties, which the walk below shows.
@@ -1024,6 +1039,8 @@ def main() -> int:
         "slab_bound_ms": rows_bound[0],
         "refit_kernel_ms": refit_b2_s * 1e3,
         "refit_idle_share": refit_idle,
+        "refit_s": refit_wall,
+        "refit_traced_s": prof_wall,
         "ptxas": b12_ptxas,
     }, {
         "name": "fused_moment_sums",

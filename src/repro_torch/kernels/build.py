@@ -27,7 +27,8 @@ NVCC_FLAGS = (
 
 _loaded: dict = {}
 # name -> {"seconds": wall seconds of the nvcc run (0.0 when cached),
-#          "log": nvcc's stderr, which holds the -Xptxas -v report}
+#          "log": nvcc's stderr, which holds the -Xptxas -v report; kept
+#          beside the library, so a cached build reports it too}
 build_info: dict = {}
 
 
@@ -56,13 +57,15 @@ def source_key(name: str, csrc: Path = CSRC) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
+    """Compile ``csrc/<name>.cu`` if its build or its nvcc log is
+    missing, then load it."""
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
     out = BUILD_DIR / f"{name}-{source_key(name)}.so"
-    if out.exists():
-        build_info[name] = {"seconds": 0.0, "log": ""}
+    log = out.with_suffix(".log")
+    if out.exists() and log.exists():
+        build_info[name] = {"seconds": 0.0, "log": log.read_text()}
     else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -74,7 +77,10 @@ def load(name: str) -> ctypes.CDLL:
                 f"nvcc failed on {src} (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+        tmp_log.write_text(proc.stderr)
         os.replace(tmp, out)
+        os.replace(tmp_log, log)
         build_info[name] = {
             "seconds": time.perf_counter() - t0,
             "log": proc.stderr,

@@ -51,8 +51,11 @@
 //     the last of 20 warps has 17 of 32 lanes), 0.4% at d = 487 (122 x 122
 //     blocks). The launcher picks T from the width (pairwise_stats.tile_for):
 //     the largest T whose threads over all splits fill the card with at
-//     least 16 warps per SM, so narrow staged widths (75, 56, 42, ...) use
-//     T = 2 or 1 rather than leave SMs idle.
+//     least 8 warps per SM, a threshold read off the times of every T at
+//     the fit paths' widths (kernels/tile_sweep.py). So the narrow
+//     staged widths (56 and below at m = 1e6; 154 and below in the rolling
+//     refit) use T = 2 or 1 rather than leave SMs idle: at width 8 and
+//     m = 1e6 a 4 x 4 block takes 8x the time of 1 x 1.
 //
 // Summation order, the same at every T and S:
 //   * each thread adds a pair's terms in sample order into a sub-sum over 128

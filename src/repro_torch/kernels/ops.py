@@ -90,14 +90,27 @@ def pairwise_moments(x_std, c, *, backend: str = None):
         return ref.pairwise_moments_ref(x_std, c)
     if backend == "blocked":
         return pairwise_moments_blocked(x_std, c)
+    _check_on_card(backend, x_std)
+    # The kernel reads both row-major; cuBLAS may return X^T X
+    # column-major (no copy when already contiguous).
+    return pairwise_stats.pairwise_moments(x_std.contiguous(), c.contiguous())
+
+
+def _check_on_card(backend, x_std) -> None:
     if backend == "cuda" and not x_std.is_cuda:
         raise ValueError(
             f"backend 'cuda' needs tensors on a CUDA device, got "
             f"{x_std.device}; use backend=None or 'blocked' on the CPU"
         )
-    # The kernel reads both row-major; cuBLAS may return X^T X
-    # column-major (no copy when already contiguous).
-    return pairwise_stats.pairwise_moments(x_std.contiguous(), c.contiguous())
+
+
+def _check_sums_backend(backend, x_std, what: str) -> None:
+    """Raise on a backend the moment-*sums* entries do not run: an
+    unknown one, ``"ref"``, or ``"cuda"`` on a tensor off the card."""
+    check_backend(backend)
+    if backend == "ref":
+        raise ValueError(f"{what} have no 'ref' backend")
+    _check_on_card(backend, x_std)
 
 
 def _check_tile(d: int, row_start: int, tile: int) -> None:
@@ -118,17 +131,10 @@ def pairwise_moment_sums_rows(x_std, c, row_start: int, tile: int, *,
     ``row_start`` is a host int. Backends as :func:`pairwise_moments`,
     without ``"ref"``.
     """
-    check_backend(backend)
+    _check_sums_backend(backend, x_std, "row-tile moment sums")
     _check_tile(x_std.shape[1], row_start, tile)
-    if backend == "ref":
-        raise ValueError("row-tile moment sums have no 'ref' backend")
     if backend == "blocked":
         return pairwise_moment_sums_blocked(x_std, c, row_start, tile)
-    if backend == "cuda" and not x_std.is_cuda:
-        raise ValueError(
-            f"backend 'cuda' needs tensors on a CUDA device, got "
-            f"{x_std.device}; use backend=None or 'blocked' on the CPU"
-        )
     return pairwise_stats.pairwise_moment_sums_rows(
         x_std.contiguous(), c.contiguous(), row_start, tile)
 
@@ -148,25 +154,13 @@ def pairwise_moment_sums_chunked(x_std, c, *, chunk: int = 512,
     the same at every buffer width. ``chunk`` bounds the residual
     intermediate of the plain versions at O(chunk * d^2).
     """
-    check_backend(backend)
-    if backend == "ref":
-        raise ValueError("chunked moment sums have no 'ref' backend")
-    m, d = x_std.shape
-    chunk = max(1, min(chunk, m))
+    _check_sums_backend(backend, x_std, "chunked moment sums")
+    chunk = max(1, min(chunk, x_std.shape[0]))
     x_std = x_std.contiguous()
     c = c.contiguous()
     if backend == "blocked":
-        s1, s2 = pairwise_moment_sums_blocked(x_std[:chunk], c)
-        for k0 in range(chunk, m, chunk):
-            t1, t2 = pairwise_moment_sums_blocked(x_std[k0:k0 + chunk], c)
-            s1 = s1 + t1
-            s2 = s2 + t2
-        return s1, s2
-    if backend == "cuda" and not x_std.is_cuda:
-        raise ValueError(
-            f"backend 'cuda' needs tensors on a CUDA device, got "
-            f"{x_std.device}; use backend=None or 'blocked' on the CPU"
-        )
+        return pairwise_stats.sum_over_slabs(
+            x_std, chunk, lambda xs: pairwise_moment_sums_blocked(xs, c))
     return pairwise_stats.pairwise_moment_sums_slabs(x_std, c, chunk)
 
 

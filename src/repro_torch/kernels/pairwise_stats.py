@@ -57,8 +57,12 @@ ACCUM_CHUNK = 128  # samples per sub-sum, as in the reference
 N_SPLIT = 128
 TILES = (4, 2, 1)  # pair-block edges the kernel is built for
 # The tile choice asks for this many threads per SM over the whole grid
-# (16 warps) before it takes a larger pair block.
-FILL_THREADS_PER_SM = 512
+# (8 warps) before it takes a larger pair block: of the thresholds that
+# ``tile_sweep`` times on an H100 over the fit paths' widths, the one with
+# the least time over all of them. A larger block wins at full width; a
+# narrow stage with few pairs leaves SMs idle behind it (at width 8 and
+# m = 1e6, 4 x 4 blocks take 8x the time of 1 x 1).
+FILL_THREADS_PER_SM = 256
 H100_SMS = 132
 # Bytes of the two shared-memory stage buffers a block aims to stay under:
 # three blocks of the 4x4 instance (167 registers a thread) fit an SM.
@@ -140,13 +144,15 @@ def slab_plan(m: int, slab: int = None, n_split: int = None) -> SlabPlan:
                     tail_per)
 
 
-def tile_for(rows: int, d: int, n_z: int, sms: int = H100_SMS) -> int:
+def tile_for(rows: int, d: int, n_z: int, sms: int = H100_SMS,
+             fill: int = None) -> int:
     """Pair-block edge T of the launch: the largest of ``TILES`` whose
-    pair blocks over all ``n_z`` splits give every SM at least
-    ``FILL_THREADS_PER_SM`` threads. T does not change a pair's sums."""
+    pair blocks over all ``n_z`` splits give every SM at least ``fill``
+    (``FILL_THREADS_PER_SM``) threads. T does not change a pair's sums."""
+    fill = FILL_THREADS_PER_SM if fill is None else fill
     for t in TILES[:-1]:
         blocks = math.ceil(rows / t) * math.ceil(d / t)
-        if blocks * n_z >= sms * FILL_THREADS_PER_SM:
+        if blocks * n_z >= sms * fill:
             return t
     return TILES[-1]
 
@@ -345,9 +351,17 @@ def pairwise_moment_sums_slabs(x_std, c, slab, *, row0=0, rows=None):
         return out
     if x_std.device.type != "cpu":
         raise ValueError(f"no pairwise-moment kernel for {x_std.device}")
-    s1 = s2 = None
-    for k0 in range(0, m, plan.slab):
-        t1, t2 = pairwise_moment_sums_plain(x_std[k0:k0 + plan.slab], c,
-                                            row0=row0, rows=rows)
-        s1, s2 = (t1, t2) if s1 is None else (s1 + t1, s2 + t2)
+    return sum_over_slabs(x_std, plan.slab, lambda xs: (
+        pairwise_moment_sums_plain(xs, c, row0=row0, rows=rows)))
+
+
+def sum_over_slabs(x_std, slab, sums):
+    """``sums(slab of x_std)`` over the (slab, d) sample slabs of ``x_std``
+    (the last one ragged), added in slab order: the order in which the
+    slab-structured launch adds its slab sums."""
+    s1, s2 = sums(x_std[:slab])
+    for k0 in range(slab, x_std.shape[0], slab):
+        t1, t2 = sums(x_std[k0:k0 + slab])
+        s1 = s1 + t1
+        s2 = s2 + t2
     return s1, s2

@@ -1,0 +1,149 @@
+"""Time every pair-block instance of the pair-moment kernel on the widths
+the fit paths launch it at, and score the launcher's tile rule.
+
+Run on a CUDA card from the repository root:
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.tile_sweep
+
+Three paths, each a list of (width, launches) cells:
+
+  * ``lingam-1m-100 staged``: B1 at m = 1e6 over the staged compaction's
+    widths (100, 75, 56, ... 8), as many launches as the stage has steps;
+  * ``varlingam-stocks-487``: B1 at (3999, 487), 487 launches (the
+    facade's masked scan);
+  * ``stream refit``: the chunked B2 launch over a 2048-row window in
+    256-row slabs at the staged widths of 487 (the rolling refit).
+
+For every cell it times each instance of ``pairwise_stats.TILES`` (the
+launcher's ``tile_for`` forced to it), checks that all instances give
+the same bits, and prints one JSON line per cell. Then, for each path, it
+prints the time of the path under ``tile_for`` with each candidate
+``FILL_THREADS_PER_SM`` and under each single instance, and last the
+candidate with the least time over all paths: the launcher's threshold
+is read off these times. Each time is the device time of
+``REPS`` back-to-back calls queued behind a device sleep, divided by
+``REPS``: the kernels' time without the host's launch gaps.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+from ..core.ordering import _stage_schedule
+from . import ops, pairwise_stats
+from .pairwise_stats import tile_for
+
+REPS = 50
+FILLS = (0, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def _device_ms(fn, reps=REPS):
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # hold the queue while the host enqueues
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _sweep_cell(call, width):
+    """{tile: ms} of ``call`` at every instance, which must agree in bits."""
+    times, ref = {}, None
+    try:
+        for tile in pairwise_stats.TILES:
+            pairwise_stats.tile_for = lambda *a, _t=tile, **k: _t
+            out = call()
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = out
+            elif not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                raise SystemExit(f"tile {tile} changes the sums at width "
+                                 f"{width}")
+            times[tile] = _device_ms(call)
+    finally:
+        pairwise_stats.tile_for = tile_for
+    return times
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("tile_sweep needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(0)
+
+    def standardized(m, d):
+        x = ops.standardize(torch.from_numpy(
+            rng.laplace(size=(m, d)).astype(np.float32)).to(dev))
+        return x, ops.correlation(x).contiguous()
+
+    paths = {}
+    x1, c1 = standardized(1_000_000, 100)
+    cells = []
+    for width, steps in _stage_schedule(100):
+        xs = x1[:, :width].contiguous()
+        cs = c1[:width, :width].contiguous()
+        n_z = pairwise_stats.slab_plan(xs.shape[0]).n_z
+        cells.append((width, steps, n_z, _sweep_cell(
+            lambda xs=xs, cs=cs: ops.pairwise_moments(xs, cs), width)))
+    paths["lingam-1m-100 staged"] = cells
+    del x1, c1
+    xv, cv = standardized(3999, 487)
+    n_z = pairwise_stats.slab_plan(3999).n_z
+    paths["varlingam-stocks-487"] = [(487, 487, n_z, _sweep_cell(
+        lambda: ops.pairwise_moments(xv, cv), 487))]
+    xw, cw = standardized(2048, 487)
+    cells = []
+    for width, steps in _stage_schedule(487):
+        xs = xw[:, :width].contiguous()
+        cs = cw[:width, :width].contiguous()
+        n_z = pairwise_stats.slab_plan(2048, 256).n_z
+        cells.append((width, steps, n_z, _sweep_cell(
+            lambda xs=xs, cs=cs: ops.pairwise_moment_sums_chunked(
+                xs, cs, chunk=256), width)))
+    paths["stream refit"] = cells
+
+    over_paths = dict.fromkeys(FILLS, 0.0)
+    for name, cells in paths.items():
+        for width, steps, n_z, times in cells:
+            print(json.dumps({
+                "path": name, "width": width, "launches": steps, "n_z": n_z,
+                "picked": tile_for(width, width, n_z, sms),
+                "ms": {str(t): v for t, v in times.items()},
+            }))
+        totals = {}
+        for f in FILLS:
+            totals[f"fill={f}"] = sum(
+                steps * times[tile_for(width, width, n_z, sms, f)]
+                for width, steps, n_z, times in cells)
+            over_paths[f] += totals[f"fill={f}"]
+        for tile in pairwise_stats.TILES:
+            totals[f"only {tile}"] = sum(steps * times[tile]
+                                         for _, steps, _, times in cells)
+        totals["best per cell"] = sum(steps * min(times.values())
+                                      for _, steps, _, times in cells)
+        print(json.dumps({"path": name, "path_ms": totals}))
+    print(json.dumps({
+        "all_paths_ms": {f"fill={f}": t for f, t in over_paths.items()},
+        "best_fill": min(over_paths, key=over_paths.get),
+        "FILL_THREADS_PER_SM": pairwise_stats.FILL_THREADS_PER_SM}))
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

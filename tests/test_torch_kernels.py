@@ -174,11 +174,11 @@ def test_slab_plan_z_offsets_cover_every_chunk_once(m, slab):
 @pytest.mark.parametrize(
     "rows,d,n_z,tile",
     [(100, 100, 127, 4), (487, 487, 32, 4), (487, 487, 16, 4),
-     (243, 243, 32, 4), (75, 75, 127, 2), (56, 56, 127, 2),
-     (42, 42, 127, 1), (8, 8, 127, 1), (100, 100, 1, 1)],
+     (243, 243, 32, 4), (75, 75, 127, 4), (56, 56, 127, 2),
+     (42, 42, 127, 2), (32, 32, 127, 1), (8, 8, 127, 1), (100, 100, 1, 1)],
 )
 def test_tile_choice_by_width(rows, d, n_z, tile):
-    """The largest pair block that still gives every SM 16 warps; at the
+    """The largest pair block that still gives every SM 8 warps; at the
     main path's widths 100 and 487 that is 4 x 4, with no padded pair at
     d = 100 and 0.4% at d = 487."""
     assert pairwise_stats.tile_for(rows, d, n_z) == tile
@@ -215,6 +215,29 @@ def test_build_key_covers_included_headers(tmp_path):
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert build.source_key("pairwise_moments", csrc) != after[
         "pairwise_moments"]
+
+
+def test_cached_build_reports_its_nvcc_log(tmp_path, monkeypatch):
+    """A library loaded from the cache brings the ptxas report of the nvcc
+    run that built it; a cached library without its log is rebuilt."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "build_info", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    key = build.source_key("pairwise_moments")
+    lib = tmp_path / f"pairwise_moments-{key}.so"
+    lib.write_bytes(b"")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc called")
+
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc called"):
+        build.load("pairwise_moments")
+    lib.with_suffix(".log").write_text("ptxas info    : Used 64 registers\n")
+    assert build.load("pairwise_moments") == str(lib)
+    assert build.build_info["pairwise_moments"] == {
+        "seconds": 0.0, "log": "ptxas info    : Used 64 registers\n"}
 
 
 def test_standardize_and_correlation_match_reference():
