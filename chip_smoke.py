@@ -45,9 +45,22 @@ any failure of which exits non-zero:
      more times untraced for its wall time and once under
      ``torch.profiler`` for B2's kernel time and the device's busy time:
      the idle share is taken over the untraced wall time;
-  9. one JSON line listing every ported kernel with its launches on its
+  9. the bootstrap at the stock panel's width (m = 4000, d = 487, 32
+     resamples, compaction "staged"): first the batch grid axis of B1/B2,
+     a batched launch bit-equal to the launches on each element (B1 at
+     4 x (4000, 487), at width 243 and at m = 3999; the slab launch at
+     2 x 2048 rows in 8 slabs) and batched B1 against its batched plain
+     version at the test shapes; then ``bootstrap_lingam`` with
+     ``strategy="auto"`` (which must pick "vmap": one B1 launch per
+     ordering step, 487 for all 32 resamples) against ``"loop"`` (32 x
+     487) on the same indices: orders equal per resample up to ties,
+     equal edge probabilities, coefficient statistics within 1e-5;
+     ``bootstrap_effects`` against the loop's fits' total effects; the
+     vmap bootstrap again untraced and once under ``torch.profiler`` for
+     its idle share; B1 timed at the batched shape (32, 4000, 487);
+ 10. one JSON line listing every ported kernel with its launches on its
      path, error, times, bound and ptxas registers and spills;
- 10. last line: {"ok": true, "device": {...}}.
+ 11. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -279,6 +292,40 @@ def walk_against_plain(x, kernel, plain, atol, x_plain=None):
     return np.array(order), worst, tied, ratio
 
 
+def parting_tie(x, order_a, order_b, reducer, atol):
+    """Replay the masked scan on ``x`` along ``order_a`` up to the first
+    position p where ``order_b`` parts from it. There the two roots must
+    tie: their scores may differ by no more than the score tolerance that
+    moments moved by ``atol`` allow (the rule of
+    :func:`walk_against_plain`). Returns (p, the score gap over its
+    tolerance); (None, 0.0) for equal orders."""
+    import torch
+
+    from repro_torch.core import ordering
+
+    parts = np.nonzero(np.asarray(order_a) != np.asarray(order_b))[0]
+    if not len(parts):
+        return None, 0.0
+    p = int(parts[0])
+    active = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
+    for step in range(p):
+        root = torch.tensor(int(order_a[step]), device=x.device)
+        _, _, mu, var = ordering.step_standardize(x, reducer)
+        x, active = ordering.residualize(x, active, root, mu, var, reducer)
+    x_std, c, _, _ = ordering.step_standardize(x, reducer)
+    cm = reducer.col_moments(x_std)
+    m1, m2 = reducer.moment_rows(x_std, c)
+    scores = ordering.step_scores(*cm, m1, m2, active)
+    tol = score_tolerance(*cm, m1, m2, active, atol)
+    a, b = int(order_a[p]), int(order_b[p])
+    gap = abs(float(scores[a] - scores[b]))
+    ratio = gap / float(tol[a] + tol[b])
+    if ratio > 1.0:
+        fail(f"orders part at position {p} ({a} against {b}) by a score "
+             f"gap {gap:.3e}, beyond the tolerance")
+    return p, ratio
+
+
 def order_consistent(order, b_true) -> bool:
     """No true edge may point from a later to an earlier variable."""
     d = len(order)
@@ -300,8 +347,10 @@ def main() -> int:
 
     from repro_torch.configs.lingam_workloads import (STREAM_WORKLOADS,
                                                       WORKLOADS)
-    from repro_torch.core import DirectLiNGAM, VarLiNGAM, api, ordering
+    from repro_torch.core import (DirectLiNGAM, VarLiNGAM, api, batched,
+                                  bootstrap, ordering)
     from repro_torch.data.simulate import simulate_lingam, simulate_var_stocks
+    from repro_torch.infer import effects
     from repro_torch.kernels import build, fused_stats, ops, pairwise_stats
     from repro_torch.stream import StreamConfig, StreamSession, window
 
@@ -995,8 +1044,213 @@ def main() -> int:
           f"samples the estimator may miss weak edges)")
     del refits, plan, x_roll, session
 
-    # 9. kernels line: launches are those of each kernel's path (the
-    # lingam-1m-100 fit, the rolling stream, B3's entry point).
+    # 9. the bootstrap at the stock panel's width. First the batch grid
+    # axis: a batched launch gives every element the bits of the launch
+    # on that element alone.
+    def batch_equal(what, got, singles):
+        same = all(torch.equal(got[0][k], s[0]) and torch.equal(got[1][k],
+                                                                 s[1])
+                   for k, s in enumerate(singles))
+        print(f"{what}: one batched launch equals the per-element launches "
+              f"bit for bit: {same}")
+        if not same:
+            fail(f"{what}: the batched launch differs")
+
+    def standardized_batch(b, m_s, d_s):
+        xs_b = torch.stack([ops.standardize(torch.from_numpy(
+            rng.laplace(size=(m_s, d_s)).astype(np.float32)).to(dev))
+            for _ in range(b)]).contiguous()
+        return xs_b, torch.stack([ops.correlation(x) for x in xs_b]
+                                 ).contiguous()
+
+    xb, cb = standardized_batch(4, wv.m, wv.d)
+    for label, xk, ck in (
+            (f"B1 batch 4 x ({wv.m}, {wv.d})", xb, cb),
+            (f"B1 batch 4 x ({wv.m}, 243), a staged width",
+             xb[..., :243].contiguous(), cb[..., :243, :243].contiguous()),
+            (f"B1 batch 4 x ({wv.m - 1}, {wv.d}), ragged m",
+             xb[:, :wv.m - 1].contiguous(), cb)):
+        before = pairwise_stats.launches
+        got = ops.pairwise_moments(xk, ck)
+        if pairwise_stats.launches != before + 1:
+            fail(f"{label}: expected one launch")
+        batch_equal(label, got, [ops.pairwise_moments(xk[k], ck[k])
+                                 for k in range(xk.shape[0])])
+    del xb, cb
+    worst_batched = 0.0
+    for m_t, d_t in TEST_SHAPES:
+        xk, ck = standardized_batch(3, m_t, d_t)
+        k1, k2 = pairwise_stats.pairwise_moments(xk, ck)
+        p1, p2 = pairwise_stats.pairwise_moment_sums_plain(xk, ck)
+        inv_t = float(np.float32(1.0 / m_t))
+        err = max(max(offdiag_err(k1[k], p1[k] * inv_t),
+                      offdiag_err(k2[k], p2[k] * inv_t)) for k in range(3))
+        worst_batched = max(worst_batched, err)
+        if err > ATOL_F32:
+            fail(f"batched B1 disagrees with its plain version at "
+                 f"(3, {m_t}, {d_t}): {err}")
+    print(f"B1 batch 3 x each test shape against the batched plain version: "
+          f"max off-diagonal err {worst_batched:.3e} (tolerance {ATOL_F32})")
+    xk, ck = standardized_batch(2, m_w, d_w)
+    before = pairwise_stats.rows_launches
+    got = ops.pairwise_moment_sums_chunked(xk, ck, chunk=sw.chunk)
+    if pairwise_stats.rows_launches != before + 1:
+        fail("the batched slab launch is not one launch")
+    batch_equal(f"B2 slab launch, batch 2 x {m_w} rows in {n_slabs} slabs of "
+                f"{sw.chunk}, d={d_w}", got,
+                [pairwise_stats.pairwise_moment_sums_slabs(xk[k], ck[k],
+                                                           sw.chunk)
+                 for k in range(2)])
+    del xk, ck, got
+
+    # The bootstrap: 32 resamples of simulate_lingam at m x d of
+    # varlingam-stocks-487, staged compaction. strategy="auto" must pick
+    # the batched engine: 16 n m d bytes = 997 MB <= 1 GiB.
+    n_boot, m_b, d_b = 32, wv.m, wv.d
+    t0 = time.perf_counter()
+    gt_b = simulate_lingam(m=m_b, d=d_b, seed=0)
+    print(f"simulate_lingam(m={m_b}, d={d_b}, seed=0) on the host: "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg_b = api.FitConfig(compaction="staged")
+    boot_kw = dict(n_sampling=n_boot, threshold=0.05, seed=0, config=cfg_b)
+    seen = {"vmap": [], "loop": []}
+    real_bootstrap_fits, real_fit_fn = batched.bootstrap_fits, api.fit_fn
+
+    def seen_bootstrap_fits(*args, **kw):
+        seen["vmap"].append(real_bootstrap_fits(*args, **kw))
+        return seen["vmap"][-1]
+
+    def seen_fit_fn(*args, **kw):
+        seen["loop"].append(real_fit_fn(*args, **kw))
+        return seen["loop"][-1]
+
+    batched.bootstrap_fits, api.fit_fn = seen_bootstrap_fits, seen_fit_fn
+    pairwise_stats.launches = 0
+    pairwise_stats.rows_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_v = bootstrap.bootstrap_lingam(gt_b.data, strategy="auto", **boot_kw)
+    vmap_s = time.perf_counter() - t0
+    boot_launches = pairwise_stats.launches
+    boot_rows = pairwise_stats.rows_launches
+    print(f"bootstrap (m={m_b}, d={d_b}, n_sampling={n_boot}, 'staged'), "
+          f"strategy 'auto' took {'vmap' if seen['vmap'] else 'loop'} "
+          f"(16 n m d = {16 * n_boot * m_b * d_b / 2**20:.0f} MiB against "
+          f"1 GiB): {vmap_s:.3f} s, {n_boot / vmap_s:.2f} fits/s; B1 "
+          f"launches {boot_launches}, B2 launches {boot_rows}")
+    if len(seen["vmap"]) != 1 or seen["loop"]:
+        fail("strategy 'auto' did not run the batched engine")
+    if boot_launches != d_b or boot_rows:
+        fail(f"expected {d_b} B1 launches (one per ordering step for all "
+             f"{n_boot} resamples), got {boot_launches} (B2 {boot_rows})")
+    pairwise_stats.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_l = bootstrap.bootstrap_lingam(gt_b.data, strategy="loop", **boot_kw)
+    loop_s = time.perf_counter() - t0
+    loop_launches = pairwise_stats.launches
+    batched.bootstrap_fits, api.fit_fn = real_bootstrap_fits, real_fit_fn
+    print(f"bootstrap, strategy 'loop' on the same indices: {loop_s:.3f} s, "
+          f"{n_boot / loop_s:.2f} fits/s; B1 launches {loop_launches}; vmap "
+          f"over loop {vmap_s / loop_s:.3f}")
+    if len(seen["loop"]) != n_boot or loop_launches != n_boot * d_b:
+        fail(f"expected {n_boot} loop fits of {d_b} B1 launches each")
+    fits_v = seen["vmap"][0]
+    fits_l = api.FitResult.stack(seen["loop"])
+    orders_v, orders_l = fits_v.order.cpu().numpy(), fits_l.order.cpu().numpy()
+    x_b = torch.from_numpy(np.ascontiguousarray(gt_b.data)).to(dev)
+    idx_b = batched.resample_indices(0, n_boot, m_b, device=dev)
+    parted = []
+    for k in range(n_boot):
+        p, ratio = parting_tie(x_b[idx_b[k]], orders_l[k], orders_v[k],
+                               ordering.LocalReducer(), ATOL_F32)
+        if p is not None:
+            parted.append((k, p, ratio))
+    prob_equal = np.array_equal(res_v.edge_prob, res_l.edge_prob)
+    coef_err = max(float(np.abs(res_v.coef_mean - res_l.coef_mean).max()),
+                   float(np.abs(res_v.coef_std - res_l.coef_std).max()))
+    adj_equal = sum(torch.equal(fits_v.adjacency[k], fits_l.adjacency[k])
+                    for k in range(n_boot))
+    print(f"bootstrap vmap against loop: orders equal in "
+          f"{n_boot - len(parted)} of {n_boot} resamples"
+          + "".join(f"; resample {k} parts at position {p} at a tie (score "
+                    f"gap {r:.3f} of its tolerance)" for k, p, r in parted)
+          + f"; adjacency bit-equal in {adj_equal}; edge_prob equal "
+          f"{prob_equal}; coef mean/std max diff {coef_err:.3e} (tolerance "
+          f"{ATOL_ADJ}); edges with prob >= 0.7: "
+          f"{len(res_v.stable_edges(0.7))}")
+    if not prob_equal or coef_err > ATOL_ADJ:
+        fail("the vmap and loop bootstraps disagree")
+    if not (np.isfinite(res_v.coef_mean).all()
+            and res_v.edge_prob.shape == (d_b, d_b)):
+        fail("the bootstrap result is malformed")
+    t0 = time.perf_counter()
+    ci = effects.bootstrap_effects(gt_b.data, n_sampling=n_boot, seed=0,
+                                   config=cfg_b)
+    effects_s = time.perf_counter() - t0
+    loop_effs = torch.stack([effects.total_effects(r) for r in seen["loop"]])
+    want_ci = effects.effect_ci(loop_effs.cpu().numpy(), ci.level)
+    ci_err = max(float(np.abs(getattr(ci, f) - getattr(want_ci, f)).max())
+                 for f in ("mean", "std", "lo", "hi"))
+    ci_finite = all(np.isfinite(getattr(ci, f)).all()
+                    for f in ("mean", "std", "lo", "hi"))
+    print(f"bootstrap_effects (same config and seed): {effects_s:.3f} s; "
+          f"finite {ci_finite}; against the loop fits' total effects: max "
+          f"diff {ci_err:.3e} (tolerance {ATOL_ADJ}; largest |effect| "
+          f"{float(loop_effs.abs().max()):.3f}); significant effects "
+          f"{len(ci.significant_effects(0.1))}")
+    if not ci_finite or ci_err > ATOL_ADJ:
+        fail("bootstrap_effects disagrees with the loop fits' effects")
+    del seen, fits_v, fits_l, ci, want_ci, loop_effs
+
+    # The vmap bootstrap again, untraced, then once traced: the idle share
+    # is 1 - device busy / the untraced median wall time.
+    def vmap_bootstrap():
+        bootstrap.bootstrap_lingam(gt_b.data, strategy="vmap", **boot_kw)
+
+    boot_walls = [vmap_s]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vmap_bootstrap()
+    boot_walls.append(time.perf_counter() - t0)
+    boot_wall = float(np.median(boot_walls))
+    b_wall, b_busy, b_kernels = device_busy(vmap_bootstrap)
+    if b_busy is None:
+        boot_idle, boot_b1_s = None, None
+        print("bootstrap traced: torch.profiler shows no device time; idle "
+              "share not measured")
+    else:
+        boot_idle = 1.0 - b_busy / boot_wall
+        boot_b1_s = sum(t for name, t in b_kernels.items()
+                        if "pair_partials" in name or "reduce_slabs" in name)
+        top = sorted(b_kernels.items(), key=lambda kv: -kv[1])[:6]
+        print("bootstrap traced, device time by kernel: " + "; ".join(
+            f"{name[:60]} {t:.3f} s" for name, t in top))
+        print(f"bootstrap (vmap): device busy {b_busy:.3f} s (traced), of "
+              f"which B1 {boot_b1_s:.3f} s; idle share {boot_idle:.1%} of "
+              f"the untraced median {boot_wall:.3f} s "
+              f"({', '.join(f'{w:.3f}' for w in boot_walls)} s); "
+              f"{1.0 - b_busy / b_wall:.1%} of the traced {b_wall:.3f} s")
+    # B1 at the batched shape of the bootstrap's first step: all 32
+    # resamples at full width, against 32 single launches.
+    xs_b, c_b, _, _ = ordering.step_standardize(x_b[idx_b],
+                                                ordering.LocalReducer())
+    batched_ms = cuda_ms(lambda: ops.pairwise_moments(xs_b, c_b), 10)
+    singles_ms = cuda_ms(lambda: [ops.pairwise_moments(xs_b[k], c_b[k])
+                                  for k in range(n_boot)], 5)
+    batched_bound = moment_bound_ms(
+        d_b, d_b, m_b * n_boot,
+        4 * n_boot * (m_b * d_b + 3 * d_b * d_b), sms, clock_mhz)
+    print(f"B1 batched at ({n_boot}, {m_b}, {d_b}): {batched_ms:.3f} ms per "
+          f"launch (median of 10, CUDA events); the same sums as {n_boot} "
+          f"single launches {singles_ms:.3f} ms; bound {batched_bound[0]:.3f} "
+          f"ms (special-function ops {batched_bound[1]:.3f} ms, bytes "
+          f"{batched_bound[2]:.3f} ms)")
+    del xs_b, c_b, x_b, idx_b
+
+    # 10. kernels line: launches are those of each kernel's path (the
+    # lingam-1m-100 fit, the rolling stream, B3's entry point; for B1 also
+    # the vmap bootstrap).
     def regs(*entries):
         return {e: ptxas[e] for e in entries if e in ptxas}
 
@@ -1019,6 +1273,15 @@ def main() -> int:
         "plain_ms_3999x487": var_b1_plain_ms,
         "bound_ms_3999x487": var_b1_bound[0],
         "max_abs_err_3999x487": var_err,
+        "batched_ms": batched_ms,
+        "batched_bound_ms": batched_bound[0],
+        "batched_shape": f"{n_boot}x{m_b}x{d_b}",
+        "batched_singles_ms": singles_ms,
+        "bootstrap_launches": boot_launches,
+        "bootstrap_loop_launches": loop_launches,
+        "bootstrap_vmap_s": vmap_s,
+        "bootstrap_loop_s": loop_s,
+        "bootstrap_idle_share": boot_idle,
         "ptxas": b12_ptxas,
     }, {
         "name": "pairwise_moment_sums_rows",
@@ -1064,10 +1327,10 @@ def main() -> int:
     }]}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s (test shapes worst err: B1 "
-          f"{worst:.3e}, B2 {worst_rows:.3e} per sample, B3 "
-          f"{worst_fused:.3e} per sample)")
+          f"{worst:.3e}, batched B1 {worst_batched:.3e}, B2 {worst_rows:.3e} "
+          f"per sample, B3 {worst_fused:.3e} per sample)")
 
-    # 10. last line
+    # 11. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

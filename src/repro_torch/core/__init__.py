@@ -1,6 +1,15 @@
-"""DirectLiNGAM / VarLiNGAM functional core and facades (local plan)."""
+"""DirectLiNGAM / VarLiNGAM functional core and facades (local plan), and
+the batched engine (many fits, bootstrap)."""
 
 from .api import FitConfig, FitResult, fit_fn, fit_from_stats  # noqa: F401
+from .batched import (  # noqa: F401
+    bootstrap_fits,
+    bootstrap_fits_with,
+    fit_many,
+    fit_many_from_stats,
+    resample_indices,
+)
+from .bootstrap import BootstrapResult, bootstrap_lingam  # noqa: F401
 from .direct_lingam import DirectLiNGAM  # noqa: F401
 from .ordering import causal_order, causal_order_compact  # noqa: F401
 from .pruning import estimate_adjacency  # noqa: F401

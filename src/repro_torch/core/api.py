@@ -3,8 +3,8 @@
 The stateful ``DirectLiNGAM`` facade sits over the types here:
 
   * :class:`FitConfig` -- frozen estimator settings.
-  * :class:`FitResult` -- one fit: order, adjacency, residual variances,
-    as tensors on the fit's device.
+  * :class:`FitResult` -- one fit, or a batch of fits: order, adjacency,
+    residual variances, as tensors on the fit's device.
 
 ``fit_fn(x, config)`` is the whole fit (ordering, adjacency,
 diagnostics) on ``x.device``: the CUDA kernel carries the pairwise
@@ -90,11 +90,24 @@ class FitConfig:
 
 @dataclasses.dataclass
 class FitResult:
-    """One fit, as tensors on the fit's device."""
+    """One fit, as tensors on the fit's device; a batch of fits (from
+    :func:`fit_impl` over (b, m, d), ``batched.fit_many``) carries a
+    leading batch axis on every field."""
 
     order: torch.Tensor      # (d,) int64 -- position p holds the variable
     adjacency: torch.Tensor  # (d, d) f32 -- B[i, j] = effect of x_j on x_i
     resid_var: torch.Tensor  # (d,) f32 -- Var(x_i - B_i x) diagnostic
+
+    @classmethod
+    def stack(cls, results) -> "FitResult":
+        """The batch of the given fits, in order."""
+        return cls(*(torch.stack(parts) for parts in zip(
+            *((r.order, r.adjacency, r.resid_var) for r in results))))
+
+    def unbind(self):
+        """The fits of a batch, in order (views of its tensors)."""
+        return [FitResult(*parts) for parts in zip(
+            self.order, self.adjacency, self.resid_var)]
 
     @classmethod
     def from_numpy(cls, order, adjacency, resid_var, device="cuda"):
@@ -179,9 +192,18 @@ def finish_fit(x, order, config: FitConfig) -> FitResult:
 
 
 def fit_impl(x, config: FitConfig) -> FitResult:
-    """Ordering then pruning, on ``x.device``."""
+    """Ordering then pruning, on ``x.device``.
+
+    Over a batch ``x`` (b, m, d) the ordering runs batched (one moment
+    kernel launch per step for all b) and pruning with the residual
+    diagnostics runs per element: the memory of one fit's pruning, and
+    each adjacency the one a fit of x[k] alone gives for the same order.
+    """
     x = x.float()
     order = _order_for_config(x, config)
+    if x.dim() == 3:
+        return FitResult.stack([finish_fit(xk, ok, config)
+                                for xk, ok in zip(x, order)])
     return finish_fit(x, order, config)
 
 
@@ -200,9 +222,36 @@ _STATS_EPS = 1e-12
 
 def standardize_from_stats(x, mean, cov):
     """(x - mean) / sqrt(diag(cov)) in float32: the data the ordering of
-    :func:`fit_from_stats` starts from."""
-    var = torch.clamp(torch.diagonal(cov.float()), min=_STATS_EPS)
-    return (x.float() - mean.float()[None, :]) * torch.rsqrt(var)[None, :]
+    :func:`fit_from_stats` starts from (over a leading batch axis too)."""
+    var = torch.clamp(torch.diagonal(cov.float(), dim1=-2, dim2=-1),
+                      min=_STATS_EPS)
+    return ((x.float() - mean.float()[..., None, :])
+            * torch.rsqrt(var)[..., None, :])
+
+
+def _finish_from_cov(cov, order, config: FitConfig) -> FitResult:
+    b = pruning.estimate_adjacency_from_cov(
+        cov,
+        order,
+        method=config.prune_method,
+        threshold=config.prune_threshold,
+        **config.prune_kwargs_dict,
+    )
+    r = torch.eye(b.shape[0], dtype=b.dtype, device=b.device) - b
+    resid_var = torch.clamp(torch.einsum("ij,jk,ik->i", r, cov, r), min=0.0)
+    return FitResult(order=order, adjacency=b, resid_var=resid_var)
+
+
+def fit_impl_from_stats(x, mean, cov, config: FitConfig) -> FitResult:
+    """:func:`fit_from_stats` without the device check; over a batch
+    (x (b, m, d), mean (b, d), cov (b, d, d)) the ordering runs batched
+    and the pruning per element, as :func:`fit_impl`."""
+    cov = cov.float()
+    order = _order_for_config(standardize_from_stats(x, mean, cov), config)
+    if x.dim() == 3:
+        return FitResult.stack([_finish_from_cov(ck, ok, config)
+                                for ck, ok in zip(cov, order)])
+    return _finish_from_cov(cov, order, config)
 
 
 def fit_from_stats(
@@ -218,15 +267,4 @@ def fit_from_stats(
     still read the rows (chunk-bounded with ``config.moment_chunk``).
     """
     _check_device(x)
-    cov = cov.float()
-    order = _order_for_config(standardize_from_stats(x, mean, cov), config)
-    b = pruning.estimate_adjacency_from_cov(
-        cov,
-        order,
-        method=config.prune_method,
-        threshold=config.prune_threshold,
-        **config.prune_kwargs_dict,
-    )
-    r = torch.eye(b.shape[0], dtype=b.dtype, device=b.device) - b
-    resid_var = torch.clamp(torch.einsum("ij,jk,ik->i", r, cov, r), min=0.0)
-    return FitResult(order=order, adjacency=b, resid_var=resid_var)
+    return fit_impl_from_stats(x, mean, cov, config)

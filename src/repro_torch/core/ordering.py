@@ -1,7 +1,7 @@
 """Causal ordering (Algorithm 1 of the paper) on the local plan.
 
 The ordering loop is d identical masked steps over a fixed-shape (m, d)
-buffer:
+buffer, or over a batch of them, (b, m, d):
 
   step(X, active):
     1. standardize active columns (ddof=0)
@@ -16,6 +16,17 @@ buffer:
 device. The root stays a device tensor throughout: no step reads a value
 back to the host, and the order is copied off the device once, at the
 end, by the caller.
+
+Every function here takes an optional leading batch axis: data (b, m, w),
+mask (b, w), roots (b,); without it, (m, w), (w,) and a 0-d root. The
+batch is the reference's ``vmap`` over fits written out (the bootstrap
+and many-dataset engine, :mod:`repro_torch.core.batched`): every
+reduction runs over the sample or pair axis of each element, each
+element picks its own root and, in the staged ordering, gathers its own
+surviving columns, and the moment kernel runs once per step over the
+whole batch. So element k takes the same steps as a fit of x[k] alone,
+with the same moments (the kernel's sums are bit for bit those of a
+launch on x[k]) and the same float64 reductions rounded to float32.
 
 :func:`compact_order_impl` shrinks the buffer to the surviving columns
 in stages and returns the same order as :func:`masked_order_impl`. That
@@ -41,9 +52,10 @@ EPS = 1e-12
 
 
 class LocalReducer:
-    """Single-device reduction plan.
+    """Single-device reduction plan, over the sample axis (the second to
+    last) of each batch element:
 
-      * ``mean_over_samples(v) -> v.mean(0)``, accumulated in float64
+      * ``mean_over_samples(v) -> v.mean(-2)``, accumulated in float64
       * ``gram_mean(v) -> v^T v / m``, a float64 product rounded to float32
         (never TF32)
       * ``moment_rows(x_std, c) -> (M1, M2)`` pairwise residual moment
@@ -60,11 +72,11 @@ class LocalReducer:
         self.moment_chunk = moment_chunk
 
     def mean_over_samples(self, v):
-        return (v.sum(dim=0, dtype=torch.float64) / v.shape[0]).float()
+        return (v.sum(dim=-2, dtype=torch.float64) / v.shape[-2]).float()
 
     def gram_mean(self, v):
         v = v.double()
-        return ((v.T @ v) / v.shape[0]).float()
+        return ((v.mT @ v) / v.shape[-2]).float()
 
     def standardize(self, x):
         return step_standardize(x, self)
@@ -76,7 +88,7 @@ class LocalReducer:
         return ops.pairwise_moments(x_std, c, backend=self.backend)
 
     def col_moments(self, x_std):
-        return measures.nonlinear_moments(x_std, axis=0)
+        return measures.nonlinear_moments(x_std, axis=-2)
 
 
 def step_standardize(x, reducer):
@@ -87,9 +99,9 @@ def step_standardize(x, reducer):
     Returns (x_std, c, mu, var); the residual update reuses mu and var.
     """
     mu = reducer.mean_over_samples(x)
-    xc = x - mu[None, :]
+    xc = x - mu[..., None, :]
     var = torch.clamp(reducer.mean_over_samples(xc * xc), min=EPS)
-    x_std = xc * torch.rsqrt(var)[None, :]
+    x_std = xc * torch.rsqrt(var)[..., None, :]
     c = reducer.gram_mean(x_std)
     return x_std, c, mu, var
 
@@ -97,16 +109,16 @@ def step_standardize(x, reducer):
 def step_scores(cm1, cm2, m1, m2, active):
     """k_list scores (float64) from the column / pairwise nonlinear
     moments, with -1e30 at inactive entries."""
-    h_col = measures.entropy_from_moments(cm1, cm2)  # (d,)
-    h_res = measures.entropy_from_moments(m1, m2)  # (d, d), [i, j]
+    h_col = measures.entropy_from_moments(cm1, cm2)  # (..., d)
+    h_res = measures.entropy_from_moments(m1, m2)  # (..., d, d), [i, j]
 
     # diff_mi[i, j] = (H(x_j) + H(r_i<-j)) - (H(x_i) + H(r_j<-i))
-    diff = (h_col[None, :] + h_res) - (h_col[:, None] + h_res.T)
+    diff = (h_col[..., None, :] + h_res) - (h_col[..., :, None] + h_res.mT)
 
-    eye = torch.eye(active.shape[0], dtype=torch.bool, device=active.device)
-    pair_ok = active[:, None] & active[None, :] & ~eye
+    eye = torch.eye(active.shape[-1], dtype=torch.bool, device=active.device)
+    pair_ok = active[..., :, None] & active[..., None, :] & ~eye
     contrib = torch.where(pair_ok, torch.clamp(diff, max=0.0) ** 2, 0.0)
-    k_list = -contrib.sum(dim=1, dtype=torch.float64)
+    k_list = -contrib.sum(dim=-1, dtype=torch.float64)
     return torch.where(active, k_list, _NEG_INF)
 
 
@@ -114,18 +126,19 @@ def ordering_step(x, active, reducer):
     """One masked ordering step.
 
     Args:
-      x:       (m, width) working data.
-      active:  (width,) bool mask of variables still to be ordered.
+      x:       (m, width) working data, or a batch (b, m, width).
+      active:  (width,) or (b, width) bool mask of variables still to be
+               ordered.
       reducer: the plan's reducer (:class:`LocalReducer`).
     Returns:
       (x_new, active_new, root): residualized data, updated mask, and
-      the column chosen this step as a 0-d device tensor.
+      the column chosen this step as a 0-d device tensor, or (b,).
     """
     x_std, c, mu, var = reducer.standardize(x)
     m1, m2 = reducer.moment_rows(x_std, c)
     cm1, cm2 = reducer.col_moments(x_std)
     k_list = step_scores(cm1, cm2, m1, m2, active)
-    root = torch.argmax(k_list)  # first maximum, as jnp.argmax
+    root = torch.argmax(k_list, dim=-1)  # first maximum, as jnp.argmax
     x_new, active_new = residualize(x, active, root, mu, var, reducer)
     return x_new, active_new, root
 
@@ -135,34 +148,37 @@ def residualize(x, active, root, mu, var, reducer):
     unstandardized working data (two-pass covariance, with the step's
     column means ``mu`` and variances ``var``). Returns the new data and
     the mask without ``root``."""
-    sel = root.view(1)
-    xr = x.index_select(1, sel)  # (m, 1)
-    cov = reducer.mean_over_samples((x - mu[None, :]) * (xr - mu[sel]))
-    coef = cov / var[sel]
-    cols = torch.arange(x.shape[1], device=x.device)
-    not_root = cols != root
+    sel = root[..., None]  # (..., 1)
+    xr = torch.gather(x, -1, sel[..., None, :].expand(*x.shape[:-1], 1))
+    mu_r = torch.gather(mu, -1, sel)[..., None, :]
+    cov = reducer.mean_over_samples((x - mu[..., None, :]) * (xr - mu_r))
+    coef = cov / torch.gather(var, -1, sel)
+    cols = torch.arange(x.shape[-1], device=x.device)
+    not_root = cols != sel
     update = torch.where(active & not_root, coef, 0.0)
-    return x - xr * update[None, :], active & not_root
+    return x - xr * update[..., None, :], active & not_root
 
 
 def masked_order_impl(x, reducer):
     """Full masked scan: d identical steps at constant width. Returns the
-    order as a (d,) int64 tensor on ``x``'s device."""
-    d = x.shape[1]
+    order as a (d,) int64 tensor on ``x``'s device, or (b, d) for a batch
+    (b, m, d)."""
+    d = x.shape[-1]
     x = x.float().contiguous()  # sample-major rows, as the kernel reads them
-    active = torch.ones(d, dtype=torch.bool, device=x.device)
+    active = torch.ones(x.shape[:-2] + (d,), dtype=torch.bool,
+                        device=x.device)
     order = []
     for _ in range(d):
         x, active, root = ordering_step(x, active, reducer)
         order.append(root)
-    return torch.stack(order)
+    return torch.stack(order, dim=-1)
 
 
 def causal_order(x, *, backend=None):
     """Full causal ordering of all d variables (local plan).
 
     Returns ``order`` (d,) -- order[p] is the variable at causal position
-    p (order[0] = most exogenous).
+    p (order[0] = most exogenous) -- or (b, d) for a batch (b, m, d).
     """
     return masked_order_impl(x, LocalReducer(backend=backend))
 
@@ -193,28 +209,34 @@ def _stage_schedule(d: int, frac: float = 0.25, min_stage: int = 8):
 
 def compact_order_impl(x, reducer, *, frac=0.25, min_stage=8):
     """Staged compaction: after each stage, gather the surviving columns
-    into a narrower buffer. Inactive columns never influence active ones,
-    so the order equals :func:`masked_order_impl` exactly."""
-    d = x.shape[1]
+    into a narrower buffer (each batch element its own). Inactive columns
+    never influence active ones, so the order equals
+    :func:`masked_order_impl` exactly. The schedule depends on d alone, so
+    all elements of a batch share each width."""
+    lead, d = x.shape[:-2], x.shape[-1]
     x = x.float().contiguous()
-    labels = torch.arange(d, device=x.device)  # current column -> original
-    active = torch.ones(d, dtype=torch.bool, device=x.device)
+    # current column -> original, per element
+    labels = torch.arange(d, device=x.device).expand(*lead, d)
+    active = torch.ones(lead + (d,), dtype=torch.bool, device=x.device)
     parts = []
     for width, n_steps in _stage_schedule(d, frac, min_stage):
         roots = []
         for _ in range(n_steps):
             x, active, root = ordering_step(x, active, reducer)
             roots.append(root)
-        parts.append(labels[torch.stack(roots)])
+        parts.append(torch.gather(labels, -1, torch.stack(roots, dim=-1)))
         keep = width - n_steps
         if keep:
             # Surviving columns in ascending order (inactive sort last).
             cols = torch.arange(width, device=x.device)
-            idx = torch.argsort(torch.where(active, cols, width))[:keep]
-            x = x.index_select(1, idx)
-            labels = labels[idx]
-            active = torch.ones(keep, dtype=torch.bool, device=x.device)
-    return torch.cat(parts)
+            idx = torch.argsort(torch.where(active, cols, width),
+                                dim=-1)[..., :keep]
+            x = torch.gather(x, -1, idx[..., None, :].expand(
+                *x.shape[:-1], keep))
+            labels = torch.gather(labels, -1, idx)
+            active = torch.ones(lead + (keep,), dtype=torch.bool,
+                                device=x.device)
+    return torch.cat(parts, dim=-1)
 
 
 def causal_order_compact(x, *, backend=None, frac=0.25, min_stage=8):

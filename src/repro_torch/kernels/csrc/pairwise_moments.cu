@@ -9,6 +9,13 @@
 //     row tile, reduce scale 1 (sums); and wrapper pairwise_moment_sums_slabs,
 //     which the chunked streaming path launches once per ordering step over
 //     all of its (chunk, d) sample slabs.
+// Every launcher takes a batch of b datasets, each its own X (m, d) and C
+// (d, d), and writes b sets of sums: the batch grid axis (blockIdx.y) that
+// the TPU kernel gets under vmap, for the bootstrap and many-dataset fits
+// (one launch per ordering step over all resamples). A single fit is the
+// batch of one. Element k's blocks read only X[k] and C[k] and write only
+// its own partials, so its sums are bit for bit those of a launch on X[k]
+// alone.
 // For every pair (i, j) of a row tile [row0, row0 + rows) against all d
 // columns:
 //
@@ -157,6 +164,15 @@ pair_partials_kernel(const float* __restrict__ x, const float* __restrict__ c,
   const int z = blockIdx.x / groups;
   const int g = blockIdx.x - z * groups;
 
+  // This block's batch element: its own X, C and partials.
+  const long long elem = blockIdx.y;
+  const long long n_z =
+      (long long)plan.n_full * plan.full_splits + plan.tail_splits;
+  x += elem * ((long long)plan.n_full * plan.slab + plan.tail) * d;
+  c += elem * d * d;
+  part1 += elem * n_z * rows * d;
+  part2 += elem * n_z * rows * d;
+
   // This block's sample range: split k of one slab.
   const int full_z = plan.n_full * plan.full_splits;
   long long base;
@@ -298,6 +314,7 @@ pair_partials_kernel(const float* __restrict__ x, const float* __restrict__ c,
 
 // out = scale * (slab sums added in slab order), each slab sum its splits
 // added in order from 0: the per-slab launches' results added in order.
+// blockIdx.y is the batch element.
 __global__ void reduce_slabs_kernel(const float* __restrict__ part1,
                                     const float* __restrict__ part2,
                                     float* __restrict__ out1,
@@ -307,6 +324,12 @@ __global__ void reduce_slabs_kernel(const float* __restrict__ part1,
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   const int n_slabs = n_full + (tail_splits > 0 ? 1 : 0);
+  const long long elem = blockIdx.y;
+  const long long n_z = (long long)n_full * full_splits + tail_splits;
+  part1 += elem * n_z * n;
+  part2 += elem * n_z * n;
+  out1 += elem * n;
+  out2 += elem * n;
   float t1 = 0.0f;
   float t2 = 0.0f;
   long long z = 0;
@@ -328,7 +351,7 @@ __global__ void reduce_slabs_kernel(const float* __restrict__ part1,
 template <int T>
 cudaError_t launch_partials(const float* x, const float* c, float* part1,
                             float* part2, int d, int row0, int rows,
-                            const SlabPlan& plan, int stage_n,
+                            const SlabPlan& plan, int stage_n, int batch,
                             cudaStream_t stream) {
   const long long pair_blocks =
       (long long)((rows + T - 1) / T) * ((d + T - 1) / T);
@@ -344,26 +367,28 @@ cudaError_t launch_partials(const float* x, const float* c, float* part1,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  pair_partials_kernel<T><<<(unsigned)(groups * n_z), kThreads, smem,
-                            stream>>>(x, c, part1, part2, d, row0, rows, plan,
-                                      stage_n, (int)groups);
+  const dim3 grid((unsigned)(groups * n_z), (unsigned)batch);
+  pair_partials_kernel<T><<<grid, kThreads, smem, stream>>>(
+      x, c, part1, part2, d, row0, rows, plan, stage_n, (int)groups);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Partial moment sums of rows [row0, row0 + rows) against all d columns over
-// the slabs of the plan: part1/part2 are (n_full * full_splits + tail_splits,
-// rows, d), one (rows, d) slice per split, slab by slab. `tile` is T (4, 2
-// or 1); `stage_n` samples per shared-memory stage divides 128.
+// the slabs of the plan, for each of `batch` datasets: x is (batch, m, d) and
+// c (batch, d, d), m = n_full * slab + tail; part1/part2 are (batch,
+// n_full * full_splits + tail_splits, rows, d), one (rows, d) slice per
+// split, slab by slab. `tile` is T (4, 2 or 1); `stage_n` samples per
+// shared-memory stage divides 128.
 extern "C" int pairwise_moment_partials(
     const float* x, const float* c, float* part1, float* part2, int d,
     int row0, int rows, long long slab, int n_full, int full_splits,
     int full_per, long long tail, int tail_splits, int tail_per, int tile,
-    int stage_n, cudaStream_t stream) {
+    int stage_n, int batch, cudaStream_t stream) {
   if (stage_n < 1 || stage_n > kChunk || kChunk % stage_n != 0 || d < 1 ||
       rows < 1 || n_full < 1 || full_splits < 1 || full_per < 1 ||
-      (tail > 0) != (tail_splits > 0)) {
+      (tail > 0) != (tail_splits > 0) || batch < 1 || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const SlabPlan plan{slab, tail, n_full, full_splits, full_per, tail_splits,
@@ -371,27 +396,29 @@ extern "C" int pairwise_moment_partials(
   switch (tile) {
     case 4:
       return (int)launch_partials<4>(x, c, part1, part2, d, row0, rows, plan,
-                                     stage_n, stream);
+                                     stage_n, batch, stream);
     case 2:
       return (int)launch_partials<2>(x, c, part1, part2, d, row0, rows, plan,
-                                     stage_n, stream);
+                                     stage_n, batch, stream);
     case 1:
       return (int)launch_partials<1>(x, c, part1, part2, d, row0, rows, plan,
-                                     stage_n, stream);
+                                     stage_n, batch, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // out = scale * sum over slabs (in order) of sum over the slab's splits (in
-// order) of part; part is (n_full * full_splits + tail_splits, n), out (n,).
+// order) of part, for each of `batch` datasets; part is (batch,
+// n_full * full_splits + tail_splits, n), out (batch, n).
 extern "C" int pairwise_moment_reduce(const float* part1, const float* part2,
                                       float* out1, float* out2, long long n,
                                       int n_full, int full_splits,
-                                      int tail_splits, float scale,
+                                      int tail_splits, float scale, int batch,
                                       cudaStream_t stream) {
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const dim3 blocks((unsigned)((n + threads - 1) / threads), (unsigned)batch);
   reduce_slabs_kernel<<<blocks, threads, 0, stream>>>(
       part1, part2, out1, out2, n, n_full, full_splits, tail_splits, scale);
   return (int)cudaGetLastError();

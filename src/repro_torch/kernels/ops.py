@@ -12,7 +12,10 @@
                      peak memory.
 
 All backends return (M1, M2) of shape (d, d) fp32 equal up to fp32
-accumulation order.
+accumulation order. Every entry also takes a leading batch axis, x_std
+(b, m, d) and c (b, d, d), as the reference's ``pairwise_moments`` does
+(``repro/kernels/ops.py``): on the card one kernel launch over the batch
+grid axis, with ``"ref"`` / ``"blocked"`` a loop over the elements.
 
 The streaming entries return *sums*: ``pairwise_moment_sums_rows`` for a
 row tile (kernel B2 on the card), ``pairwise_moment_sums_chunked`` over
@@ -76,6 +79,13 @@ def pairwise_moment_sums_blocked(x_std, c, row0: int = 0, rows: int = None,
     return s1, s2
 
 
+def _each(fn, x_std, c):
+    """``fn(x_std, c)``, looped over a leading batch axis if there is one."""
+    if x_std.dim() == 3:
+        return pairwise_stats.over_batch(fn, x_std, c)
+    return fn(x_std, c)
+
+
 def pairwise_moments_blocked(x_std, c, block: int = 64):
     """Row-blocked plain version of the means (M1, M2), each (d, d)."""
     inv_m = float(np.float32(1.0 / x_std.shape[0]))
@@ -84,12 +94,13 @@ def pairwise_moments_blocked(x_std, c, block: int = 64):
 
 
 def pairwise_moments(x_std, c, *, backend: str = None):
-    """Dispatching wrapper. x_std: (m, d) standardized; c: (d, d)."""
+    """Dispatching wrapper. x_std: (m, d) standardized, c: (d, d); or
+    x_std (b, m, d) and c (b, d, d), giving (b, d, d) moments."""
     check_backend(backend)
     if backend == "ref":
-        return ref.pairwise_moments_ref(x_std, c)
+        return _each(ref.pairwise_moments_ref, x_std, c)
     if backend == "blocked":
-        return pairwise_moments_blocked(x_std, c)
+        return _each(pairwise_moments_blocked, x_std, c)
     _check_on_card(backend, x_std)
     # The kernel reads both row-major; cuBLAS may return X^T X
     # column-major (no copy when already contiguous).
@@ -132,9 +143,10 @@ def pairwise_moment_sums_rows(x_std, c, row_start: int, tile: int, *,
     without ``"ref"``.
     """
     _check_sums_backend(backend, x_std, "row-tile moment sums")
-    _check_tile(x_std.shape[1], row_start, tile)
+    _check_tile(x_std.shape[-1], row_start, tile)
     if backend == "blocked":
-        return pairwise_moment_sums_blocked(x_std, c, row_start, tile)
+        return _each(lambda xk, ck: pairwise_moment_sums_blocked(
+            xk, ck, row_start, tile), x_std, c)
     return pairwise_stats.pairwise_moment_sums_rows(
         x_std.contiguous(), c.contiguous(), row_start, tile)
 
@@ -155,12 +167,13 @@ def pairwise_moment_sums_chunked(x_std, c, *, chunk: int = 512,
     intermediate of the plain versions at O(chunk * d^2).
     """
     _check_sums_backend(backend, x_std, "chunked moment sums")
-    chunk = max(1, min(chunk, x_std.shape[0]))
+    chunk = max(1, min(chunk, x_std.shape[-2]))
     x_std = x_std.contiguous()
     c = c.contiguous()
     if backend == "blocked":
         return pairwise_stats.sum_over_slabs(
-            x_std, chunk, lambda xs: pairwise_moment_sums_blocked(xs, c))
+            x_std, chunk,
+            lambda xs: _each(pairwise_moment_sums_blocked, xs, c))
     return pairwise_stats.pairwise_moment_sums_slabs(x_std, c, chunk)
 
 
@@ -168,7 +181,7 @@ def pairwise_moments_chunked(x_std, c, *, chunk: int = 512,
                              backend: str = None):
     """Chunk-accumulated pairwise moment *means*: the chunked sums times
     the float32 1/m, as the reference."""
-    inv_m = float(np.float32(1.0 / x_std.shape[0]))
+    inv_m = float(np.float32(1.0 / x_std.shape[-2]))
     s1, s2 = pairwise_moment_sums_chunked(x_std, c, chunk=chunk,
                                           backend=backend)
     return s1 * inv_m, s2 * inv_m

@@ -29,11 +29,19 @@ share the launcher:
     equals the per-slab ``pairwise_moment_sums_rows`` sums added in slab
     order, bit for bit.
 
+Every wrapper also takes a leading batch axis, x_std (b, m, d) and c
+(b, d, d), every element with the same m, d, row tile and slab plan: one
+launch over a batch grid axis, the axis the TPU kernel gets under
+``vmap``, for the bootstrap and many-dataset fits. Element k's sums equal
+those of the launch on x_std[k] alone, bit for bit; a 2-D input is the
+batch of one.
+
 ``pairwise_moment_sums_plain`` is the kernel's plain-torch version: the
 same split plan, the same 128-wide sample sub-sums, the same fixed order
-of splits (the slab wrapper's plain version adds it slab by slab). The
-wrappers take it only for tensors on the CPU; for a CUDA tensor they
-launch the kernel or raise.
+of splits (the slab wrapper's plain version adds it slab by slab), and
+over a batch a loop of the same over its elements. The wrappers take it
+only for tensors on the CPU; for a CUDA tensor they launch the kernel or
+raise.
 """
 
 from __future__ import annotations
@@ -70,9 +78,10 @@ STAGE_BYTES = 64 * 1024
 # Elements of one (rows, d, samples) temporary in the plain version.
 _PLAIN_BUDGET = 1 << 22
 
-# Kernel launches through each wrapper (one per call that runs on the card):
-# ``launches`` counts pairwise_moments (B1), ``rows_launches``
-# pairwise_moment_sums_rows and pairwise_moment_sums_slabs (B2).
+# Kernel launches through each wrapper (one per call that runs on the card,
+# a batched call included): ``launches`` counts pairwise_moments (B1),
+# ``rows_launches`` pairwise_moment_sums_rows and pairwise_moment_sums_slabs
+# (B2).
 launches = 0
 rows_launches = 0
 
@@ -147,7 +156,8 @@ def slab_plan(m: int, slab: int = None, n_split: int = None) -> SlabPlan:
 def tile_for(rows: int, d: int, n_z: int, sms: int = H100_SMS,
              fill: int = None) -> int:
     """Pair-block edge T of the launch: the largest of ``TILES`` whose
-    pair blocks over all ``n_z`` splits give every SM at least ``fill``
+    pair blocks over all ``n_z`` splits (of every batch element: the
+    launcher passes b x n_z) give every SM at least ``fill``
     (``FILL_THREADS_PER_SM``) threads. T does not change a pair's sums."""
     fill = FILL_THREADS_PER_SM if fill is None else fill
     for t in TILES[:-1]:
@@ -168,14 +178,15 @@ def stage_for(d: int) -> int:
 
 
 def _check(x_std, c, row0, rows):
-    if x_std.dim() != 2 or c.dim() != 2:
+    if x_std.dim() not in (2, 3) or c.dim() != x_std.dim():
         raise ValueError(
-            f"x_std must be (m, d) and c (d, d), got {tuple(x_std.shape)} "
-            f"and {tuple(c.shape)}"
+            f"x_std must be (m, d) and c (d, d), or (b, m, d) and (b, d, d); "
+            f"got {tuple(x_std.shape)} and {tuple(c.shape)}"
         )
-    m, d = x_std.shape
-    if tuple(c.shape) != (d, d):
-        raise ValueError(f"c must be ({d}, {d}), got {tuple(c.shape)}")
+    m, d = x_std.shape[-2:]
+    if tuple(c.shape) != (*x_std.shape[:-2], d, d):
+        raise ValueError(f"c must be {(*x_std.shape[:-2], d, d)}, got "
+                         f"{tuple(c.shape)}")
     if m < 1 or d < 1:
         raise ValueError(f"empty input of shape {(m, d)}")
     if not (0 <= row0 and rows >= 1 and row0 + rows <= d):
@@ -184,16 +195,27 @@ def _check(x_std, c, row0, rows):
         raise ValueError(f"x_std on {x_std.device} but c on {c.device}")
 
 
+def over_batch(fn, x_std, c):
+    """``fn(x_std[k], c[k])`` for each element of a batch, its pairs of
+    results stacked: the plain versions' loop over a leading batch axis."""
+    out = [fn(xk, ck) for xk, ck in zip(x_std, c)]
+    return tuple(torch.stack(parts) for parts in zip(*out))
+
+
 def pairwise_moment_sums_plain(x_std, c, *, row0=0, rows=None, n_split=None):
     """Plain-torch version of the kernel: moment sums (S1, S2), each
-    (rows, d), with the kernel's split plan and 128-wide sub-sums.
+    (rows, d), with the kernel's split plan and 128-wide sub-sums; over a
+    leading batch axis, (b, rows, d) by a loop over the elements.
 
     Computes in ``x_std``'s dtype (the chip check runs it in float64);
     the row blocks keep each temporary under ``_PLAIN_BUDGET`` elements.
     """
-    m, d = x_std.shape
+    m, d = x_std.shape[-2:]
     rows = d - row0 if rows is None else rows
     _check(x_std, c, row0, rows)
+    if x_std.dim() == 3:
+        return over_batch(lambda xk, ck: pairwise_moment_sums_plain(
+            xk, ck, row0=row0, rows=rows, n_split=n_split), x_std, c)
     n_split, per_split = split_plan(m, n_split)
     span = per_split * ACCUM_CHUNK
     xt = x_std.T
@@ -233,47 +255,57 @@ def _kernel_lib():
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.pairwise_moment_reduce.restype = ctypes.c_int
     lib.pairwise_moment_reduce.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     return lib
 
 
+MAX_BATCH = 65535  # the grid's y extent
+
+
 def _launch_sums(x_std, c, row0, rows, plan, scale):
+    """One launch of the partials kernel and one of the reduce kernel
+    over x_std (m, d) or a batch (b, m, d); sums of shape (rows, d) or
+    (b, rows, d)."""
     if x_std.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(
             f"the CUDA kernel takes float32, got {x_std.dtype} and {c.dtype}"
         )
     if not (x_std.is_contiguous() and c.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous x_std and c")
-    d = x_std.shape[1]
+    lead = x_std.shape[:-2]  # () or (b,)
+    b = x_std.shape[0] if lead else 1
+    if not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"batch of {b} outside [1, {MAX_BATCH}]")
+    d = x_std.shape[-1]
     lib = _kernel_lib()
     with torch.cuda.device(x_std.device):
         sms = torch.cuda.get_device_properties(
             x_std.device).multi_processor_count
         stream = torch.cuda.current_stream().cuda_stream
-        part1 = torch.empty((plan.n_z, rows, d), device=x_std.device)
+        part1 = torch.empty((b, plan.n_z, rows, d), device=x_std.device)
         part2 = torch.empty_like(part1)
-        out1 = torch.empty((rows, d), device=x_std.device)
+        out1 = torch.empty((*lead, rows, d), device=x_std.device)
         out2 = torch.empty_like(out1)
         err = lib.pairwise_moment_partials(
             x_std.data_ptr(), c.data_ptr(), part1.data_ptr(),
             part2.data_ptr(), d, row0, rows, plan.slab, plan.n_full,
             plan.full_splits, plan.full_per, plan.tail, plan.tail_splits,
-            plan.tail_per, tile_for(rows, d, plan.n_z, sms), stage_for(d),
-            stream,
+            plan.tail_per, tile_for(rows, d, b * plan.n_z, sms),
+            stage_for(d), b, stream,
         )
         if err:
             raise RuntimeError(f"pairwise_moment_partials: CUDA error {err}")
         err = lib.pairwise_moment_reduce(
             part1.data_ptr(), part2.data_ptr(), out1.data_ptr(),
             out2.data_ptr(), rows * d, plan.n_full, plan.full_splits,
-            plan.tail_splits, scale, stream,
+            plan.tail_splits, scale, b, stream,
         )
         if err:
             raise RuntimeError(f"pairwise_moment_reduce: CUDA error {err}")
@@ -284,13 +316,15 @@ def pairwise_moments(x_std, c, *, n_split=None):
     """Pairwise residual moments (M1, M2), each (d, d) float32 means.
 
     Args:
-      x_std: (m, d) standardized samples, sample-major.
-      c:     (d, d) sample correlation of ``x_std`` (full fp32).
+      x_std: (m, d) standardized samples, sample-major; or a batch
+             (b, m, d), giving (b, d, d) moments in one launch.
+      c:     (d, d) sample correlation of ``x_std`` (full fp32), or
+             (b, d, d).
     On a CUDA tensor this launches the kernel (float32, contiguous, or it
     raises); on a CPU tensor it runs the plain version.
     """
     global launches
-    m, d = x_std.shape
+    m, d = x_std.shape[-2:]
     _check(x_std, c, 0, d)
     inv_m = float(np.float32(1.0 / m))  # the reference's f32 1/m
     if x_std.is_cuda:
@@ -310,8 +344,10 @@ def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None):
 
     Args:
       x_std: (m, d) standardized samples, sample-major (a row slice of a
-             larger sample-major X is a valid, contiguous input).
-      c:     (d, d) correlation of the data ``x_std`` was standardized by.
+             larger sample-major X is a valid, contiguous input); or a
+             batch (b, m, d), giving (b, rows, d) sums.
+      c:     (d, d) correlation of the data ``x_std`` was standardized by,
+             or (b, d, d).
       row0, rows: the tile, host ints; a tile outside [0, d) raises.
     On a CUDA tensor this launches the kernel (float32, contiguous, or it
     raises); on a CPU tensor it runs the plain version.
@@ -320,7 +356,7 @@ def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None):
     _check(x_std, c, row0, rows)
     if x_std.is_cuda:
         out = _launch_sums(x_std, c, row0, rows,
-                           slab_plan(x_std.shape[0], n_split=n_split), 1.0)
+                           slab_plan(x_std.shape[-2], n_split=n_split), 1.0)
         rows_launches += 1
         return out
     if x_std.device.type != "cpu":
@@ -336,12 +372,13 @@ def pairwise_moment_sums_slabs(x_std, c, slab, *, row0=0, rows=None):
     :func:`pairwise_moment_sums_rows`, added in slab order.
 
     On a CUDA tensor this is one launch of the kernel (float32,
-    contiguous, or it raises) over every slab's splits, equal bit for bit
-    to the per-slab launches added in order; on a CPU tensor it runs the
-    plain version slab by slab.
+    contiguous, or it raises) over every slab's splits, of every element
+    of a leading batch axis if there is one, equal bit for bit to the
+    per-slab launches added in order; on a CPU tensor it runs the plain
+    version slab by slab.
     """
     global rows_launches
-    m, d = x_std.shape
+    m, d = x_std.shape[-2:]
     rows = d - row0 if rows is None else rows
     _check(x_std, c, row0, rows)
     plan = slab_plan(m, slab)
@@ -357,11 +394,12 @@ def pairwise_moment_sums_slabs(x_std, c, slab, *, row0=0, rows=None):
 
 def sum_over_slabs(x_std, slab, sums):
     """``sums(slab of x_std)`` over the (slab, d) sample slabs of ``x_std``
-    (the last one ragged), added in slab order: the order in which the
-    slab-structured launch adds its slab sums."""
-    s1, s2 = sums(x_std[:slab])
-    for k0 in range(slab, x_std.shape[0], slab):
-        t1, t2 = sums(x_std[k0:k0 + slab])
+    (the last one ragged; the sample axis is the second to last), added in
+    slab order: the order in which the slab-structured launch adds its
+    slab sums."""
+    s1, s2 = sums(x_std[..., :slab, :])
+    for k0 in range(slab, x_std.shape[-2], slab):
+        t1, t2 = sums(x_std[..., k0:k0 + slab, :])
         s1 = s1 + t1
         s2 = s2 + t2
     return s1, s2

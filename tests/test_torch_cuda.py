@@ -8,14 +8,18 @@ has only PyTorch and the CUDA toolkit:
 Skips without a card. Tolerances: off-diagonal moments within atol 2e-6
 (B1), row-tile sums within 2e-6 * m (B2) and fused sums within 4e-6 * m
 (B3), the reference's own kernel tolerances; repeat launches
-bit-identical, and bit-identical across buffer widths, tile shapes and
-the slab-structured launch against per-slab launches.
+bit-identical, and bit-identical across buffer widths, tile shapes, the
+slab-structured launch against per-slab launches, and a batched launch
+against the launches on each element. The bootstrap's two strategies on
+the card: equal edge probabilities, coefficients within 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import api, bootstrap
+from repro_torch.data.simulate import simulate_lingam
 from repro_torch.kernels import fused_stats, ops, pairwise_stats
 
 SHAPES = [(64, 4), (100, 5), (257, 10), (511, 16), (1000, 33), (2048, 64),
@@ -198,3 +202,74 @@ def test_cuda_row_tile_and_fused_kernels_reject_what_they_cannot_take(
         fused_stats.fused_moment_sums(x.t(), mu, rstd, c, 0, 8)  # (8, 300)
     with pytest.raises(ValueError):
         fused_stats.fused_moment_sums(x, mu, rstd, c.t(), 0, 8)
+
+
+def _standardized_batch(b, m, d, device):
+    rng = np.random.default_rng(b * 7 + m * 1000 + d)
+    xs = torch.stack([ops.standardize(torch.tensor(
+        rng.laplace(size=(m, d)), dtype=torch.float32, device=device))
+        for _ in range(b)])
+    return xs.contiguous(), torch.stack(
+        [ops.correlation(x) for x in xs]).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,m,d", [(4, 4000, 487), (4, 4000, 243),
+                                   (3, 3999, 487), (5, 777, 40)])
+def test_cuda_batched_launch_equals_per_element_launches(cuda_device, b, m,
+                                                         d):
+    """One B1 launch over a batch gives each element the sums of the
+    launch on that element alone, bit for bit (the launcher may pick
+    another pair block for the batch: T does not change a pair's sums);
+    and agrees with the batched plain version."""
+    xs, cs = _standardized_batch(b, m, d, cuda_device)
+    before = pairwise_stats.launches
+    g1, g2 = pairwise_stats.pairwise_moments(xs, cs)
+    torch.cuda.synchronize()
+    assert pairwise_stats.launches == before + 1
+    assert g1.shape == (b, d, d)
+    for k in range(b):
+        s1, s2 = pairwise_stats.pairwise_moments(xs[k], cs[k])
+        assert torch.equal(g1[k], s1) and torch.equal(g2[k], s2), k
+    if m * d <= 40_000:
+        p1, p2 = pairwise_stats.pairwise_moment_sums_plain(xs, cs)
+        inv_m = float(np.float32(1.0 / m))
+        mask = ~torch.eye(d, dtype=torch.bool, device=cuda_device)
+        for got, want in ((g1, p1 * inv_m), (g2, p2 * inv_m)):
+            assert (got - want)[:, mask].abs().max().item() <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,m,d,slab", [(2, 2048, 487, 256),
+                                        (3, 2000, 40, 96)])
+def test_cuda_batched_slab_launch_equals_per_element(cuda_device, b, m, d,
+                                                     slab):
+    xs, cs = _standardized_batch(b, m, d, cuda_device)
+    before = pairwise_stats.rows_launches
+    g1, g2 = ops.pairwise_moment_sums_chunked(xs, cs, chunk=slab)
+    torch.cuda.synchronize()
+    assert pairwise_stats.rows_launches == before + 1
+    for k in range(b):
+        s1, s2 = pairwise_stats.pairwise_moment_sums_slabs(xs[k], cs[k], slab)
+        assert torch.equal(g1[k], s1) and torch.equal(g2[k], s2), k
+    r1, _ = pairwise_stats.pairwise_moment_sums_rows(xs, cs, 3, d - 5)
+    for k in range(b):
+        t1, _ = pairwise_stats.pairwise_moment_sums_rows(xs[k], cs[k], 3,
+                                                         d - 5)
+        assert torch.equal(r1[k], t1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compaction", ["none", "staged"])
+def test_cuda_bootstrap_vmap_equals_loop(cuda_device, compaction):
+    gt = simulate_lingam(m=500, d=6, seed=4)
+    kw = dict(n_sampling=6, threshold=0.1, seed=0,
+              config=api.FitConfig(compaction=compaction))
+    before = pairwise_stats.launches
+    res_v = bootstrap.bootstrap_lingam(gt.data, strategy="vmap", **kw)
+    assert pairwise_stats.launches == before + 6  # one per ordering step
+    res_l = bootstrap.bootstrap_lingam(gt.data, strategy="loop", **kw)
+    assert pairwise_stats.launches == before + 6 + 6 * 6
+    np.testing.assert_array_equal(res_v.edge_prob, res_l.edge_prob)
+    np.testing.assert_allclose(res_v.coef_mean, res_l.coef_mean, atol=1e-5)
+    np.testing.assert_allclose(res_v.coef_std, res_l.coef_std, atol=1e-5)
