@@ -54,10 +54,14 @@ any failure of which exits non-zero:
      ``strategy="auto"`` (which must pick "vmap": one B1 launch per
      ordering step, 487 for all 32 resamples) against ``"loop"`` (32 x
      487) on the same indices: orders equal per resample up to ties,
-     equal edge probabilities, coefficient statistics within 1e-5;
-     ``bootstrap_effects`` against the loop's fits' total effects; the
-     vmap bootstrap again untraced and once under ``torch.profiler`` for
-     its idle share; B1 timed at the batched shape (32, 4000, 487);
+     equal edge probabilities, coefficient statistics within 1e-5; the
+     peak device memory of each strategy; ``bootstrap_effects`` against
+     the loop's fits' total effects, and those effects (the card's
+     triangular solves) against float64 ``(I - B)^-1`` within the
+     solve's componentwise error bound; the vmap bootstrap again
+     untraced and once under ``torch.profiler`` for its idle share; B1
+     at the batched shape (32, 4000, 487) against its plain version in
+     float64, and timed;
  10. one JSON line listing every ported kernel with its launches on its
      path, error, times, bound and ptxas registers and spills;
  11. last line: {"ok": true, "device": {...}}.
@@ -97,6 +101,12 @@ EDGE_CELLS = [(7, 9, 127), (8, 16, 129), (9, 15, 255), (8, 17, 257),
               (16, 16, 128)]
 ATOL_ROWS = 2e-6
 ATOL_FUSED = 4e-6
+# A float32 unit-triangular solve T = L^-1 against float64: componentwise
+# |T32 - T| <= gamma_d |T| |L| |T32|, gamma_d = d u / (1 - d u), u = 2^-24
+# (Higham, Accuracy and Stability of Numerical Algorithms, Thm 8.5);
+# plus an absolute 1e-9 for the float64 inverse's own rounding where T is
+# zero by structure.
+SOLVE_ABS_FLOOR = 1e-9
 # Thetas and adjacency of a rolling refit against the from-scratch window
 # fit with the same order (tests/test_stream.py).
 ATOL_STREAM = 1e-4
@@ -1125,12 +1135,21 @@ def main() -> int:
         return seen["loop"][-1]
 
     batched.bootstrap_fits, api.fit_fn = seen_bootstrap_fits, seen_fit_fn
+    peak_bytes = {}
+
+    def peak_from(base):
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
     pairwise_stats.launches = 0
     pairwise_stats.rows_launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     res_v = bootstrap.bootstrap_lingam(gt_b.data, strategy="auto", **boot_kw)
     vmap_s = time.perf_counter() - t0
+    peak_bytes["vmap"] = peak_from(base_bytes)
     boot_launches = pairwise_stats.launches
     boot_rows = pairwise_stats.rows_launches
     print(f"bootstrap (m={m_b}, d={d_b}, n_sampling={n_boot}, 'staged'), "
@@ -1144,10 +1163,14 @@ def main() -> int:
         fail(f"expected {d_b} B1 launches (one per ordering step for all "
              f"{n_boot} resamples), got {boot_launches} (B2 {boot_rows})")
     pairwise_stats.launches = 0
+    fits_v = seen["vmap"][0]  # held: the loop's peak is taken beside it
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     res_l = bootstrap.bootstrap_lingam(gt_b.data, strategy="loop", **boot_kw)
     loop_s = time.perf_counter() - t0
+    peak_bytes["loop"] = peak_from(base_bytes)
     loop_launches = pairwise_stats.launches
     batched.bootstrap_fits, api.fit_fn = real_bootstrap_fits, real_fit_fn
     print(f"bootstrap, strategy 'loop' on the same indices: {loop_s:.3f} s, "
@@ -1155,7 +1178,12 @@ def main() -> int:
           f"over loop {vmap_s / loop_s:.3f}")
     if len(seen["loop"]) != n_boot or loop_launches != n_boot * d_b:
         fail(f"expected {n_boot} loop fits of {d_b} B1 launches each")
-    fits_v = seen["vmap"][0]
+    stack_bytes = 4 * n_boot * m_b * d_b
+    print(f"bootstrap peak device memory above what was allocated before "
+          f"(torch.cuda.max_memory_allocated): vmap {peak_bytes['vmap']} B "
+          f"({peak_bytes['vmap'] / stack_bytes:.2f} x the {stack_bytes} B "
+          f"resample stack), loop {peak_bytes['loop']} B; the 'auto' rule "
+          f"budgets 4 x the stack = {4 * stack_bytes} B")
     fits_l = api.FitResult.stack(seen["loop"])
     orders_v, orders_l = fits_v.order.cpu().numpy(), fits_l.order.cpu().numpy()
     x_b = torch.from_numpy(np.ascontiguousarray(gt_b.data)).to(dev)
@@ -1201,6 +1229,27 @@ def main() -> int:
           f"{len(ci.significant_effects(0.1))}")
     if not ci_finite or ci_err > ATOL_ADJ:
         fail("bootstrap_effects disagrees with the loop fits' effects")
+    # The same solves against an independent reference on the card.
+    gamma = d_b * 2.0**-24 / (1.0 - d_b * 2.0**-24)
+    eye_b = torch.eye(d_b, dtype=torch.float64, device=dev)
+    solve_err, solve_rel, solve_ratio = 0.0, 0.0, 0.0
+    for r, t32 in zip(seen["loop"], loop_effs):
+        l64 = eye_b - r.adjacency.double()
+        t64 = torch.linalg.inv(l64)
+        err = (t32.double() - t64).abs()
+        bound = gamma * (t64.abs() @ l64.abs() @ t32.double().abs())
+        solve_err = max(solve_err, float(err.max()))
+        solve_rel = max(solve_rel, float((err / t64.abs().clamp_min(1.0))
+                                         .max()))
+        solve_ratio = max(solve_ratio, float(
+            ((err - SOLVE_ABS_FLOOR) / bound.clamp_min(1e-300)).max()))
+    print(f"total effects of the {n_boot} loop fits (float32 triangular "
+          f"solves on the card) against float64 inv(I - B): max abs err "
+          f"{solve_err:.3e}, max err / max(1, |T|) {solve_rel:.3e}; largest "
+          f"share of the componentwise bound gamma_d |T| |I - B| |T32| "
+          f"(+{SOLVE_ABS_FLOOR}) {solve_ratio:.3e} (must be <= 1)")
+    if not solve_ratio <= 1.0:
+        fail("the card's total-effect solves exceed their error bound")
     del seen, fits_v, fits_l, ci, want_ci, loop_effs
 
     # The vmap bootstrap again, untraced, then once traced: the idle share
@@ -1235,6 +1284,20 @@ def main() -> int:
     # resamples at full width, against 32 single launches.
     xs_b, c_b, _, _ = ordering.step_standardize(x_b[idx_b],
                                                 ordering.LocalReducer())
+    t0 = time.perf_counter()
+    k1, k2 = ops.pairwise_moments(xs_b, c_b)
+    p1, p2 = pairwise_stats.pairwise_moment_sums_plain(xs_b.double(),
+                                                       c_b.double())
+    batched_err = max(max(offdiag_err(k1[k], p1[k] / m_b),
+                          offdiag_err(k2[k], p2[k] / m_b))
+                      for k in range(n_boot))
+    print(f"B1 batched at ({n_boot}, {m_b}, {d_b}) against the batched plain "
+          f"version in float64: max off-diagonal err {batched_err:.3e} "
+          f"(tolerance {ATOL_F32}), {time.perf_counter() - t0:.1f} s")
+    if not batched_err <= ATOL_F32:
+        fail(f"batched B1 disagrees with its float64 plain version at "
+             f"({n_boot}, {m_b}, {d_b}): {batched_err}")
+    del k1, k2, p1, p2
     batched_ms = cuda_ms(lambda: ops.pairwise_moments(xs_b, c_b), 10)
     singles_ms = cuda_ms(lambda: [ops.pairwise_moments(xs_b[k], c_b[k])
                                   for k in range(n_boot)], 5)
@@ -1276,12 +1339,15 @@ def main() -> int:
         "batched_ms": batched_ms,
         "batched_bound_ms": batched_bound[0],
         "batched_shape": f"{n_boot}x{m_b}x{d_b}",
+        "batched_max_abs_err": batched_err,
         "batched_singles_ms": singles_ms,
         "bootstrap_launches": boot_launches,
         "bootstrap_loop_launches": loop_launches,
         "bootstrap_vmap_s": vmap_s,
         "bootstrap_loop_s": loop_s,
         "bootstrap_idle_share": boot_idle,
+        "bootstrap_vmap_peak_bytes": peak_bytes["vmap"],
+        "bootstrap_loop_peak_bytes": peak_bytes["loop"],
         "ptxas": b12_ptxas,
     }, {
         "name": "pairwise_moment_sums_rows",

@@ -6,9 +6,12 @@ exogenous shift of ``x_j``, summed over every directed path. The fit
 guarantees ``B`` is strictly lower triangular *in causal order*, so the
 inverse is never formed densely: :func:`total_effects_impl` permutes
 ``B`` into causal order, runs one unit-lower-triangular solve against
-``I`` and permutes back: O(d^3/3) operations, no pivoting. Every
-function here also takes a leading batch axis (orders (b, d), adjacency
-(b, d, d)), the reference's ``vmap`` written out.
+``I`` and permutes back: O(d^3/3) operations, no pivoting. The graph
+queries (:func:`total_effects_impl`, :func:`total_effects`,
+:func:`target_effects_row`, :func:`effects_avoiding`,
+:func:`effects_through`) also take a leading batch axis (orders (b, d),
+adjacency (b, d, d)), the reference's ``vmap`` written out; they run on
+the device of the tensors they are given. :func:`var_irf` takes one fit.
 
 Also here:
 
@@ -82,19 +85,20 @@ def target_effects_row(adjacency, order, target):
     """One row of the total-effect matrix: ``T[target, :]``.
 
     A single transposed unit-triangular solve, O(d^2) rather than the
-    full O(d^3) matrix solve. ``target`` is an int or a 0-d tensor.
+    full O(d^3) matrix solve. ``target`` is an int or a 0-d tensor; over
+    a batch of fits the rows come out (b, d), one target for all.
     """
     b = adjacency.float()
     order = order.long()
     d = b.shape[-1]
     bo = _permute(b, order)
     pos = _positions(order)
-    rhs = torch.nn.functional.one_hot(pos[target], d).to(b.dtype)
+    rhs = torch.nn.functional.one_hot(pos[..., target], d).to(b.dtype)
     z = torch.linalg.solve_triangular(
-        (_eye_like(b) - bo).mT, rhs[:, None], upper=True,
+        (_eye_like(b) - bo).mT, rhs[..., None], upper=True,
         unitriangular=True,
-    )[:, 0]  # z[q] = T_ord[pos[target], q]
-    return z[pos]
+    )[..., 0]  # z[q] = T_ord[pos[target], q]
+    return torch.gather(z, -1, pos)
 
 
 def effects_avoiding(adjacency, order, blocked):
@@ -118,8 +122,10 @@ def effects_through(adjacency, order, nodes):
     )
 
 
-def var_irf(b0, order, var_coefs, horizon: int):
-    """Structural impulse responses of a VarLiNGAM fit.
+def var_irf(b0, order, var_coefs, horizon: int, device="cuda"):
+    """Structural impulse responses of a VarLiNGAM fit, computed on
+    ``device`` (the card unless the caller asks for ``"cpu"``; raises
+    without a card).
 
     Args:
       b0:        (d, d) instantaneous adjacency (``theta_0``).
@@ -127,6 +133,9 @@ def var_irf(b0, order, var_coefs, horizon: int):
       var_coefs: (k, d, d) reduced-form VAR coefficient matrices
                  ``M_tau`` (``VarLiNGAM.var_coefs_``).
       horizon:   number of lag steps to propagate.
+      device:    where the solve and the recursion run; numpy inputs
+                 (the facade's ``adjacency_matrices_[0]``,
+                 ``causal_order_``, ``var_coefs_``) are moved there.
 
     Returns:
       (horizon + 1, d, d) responses: ``irf[h, i, j]`` is the change in
@@ -134,10 +143,11 @@ def var_irf(b0, order, var_coefs, horizon: int):
       ``irf[0] = (I - B0)^{-1}`` (instantaneous total effects), later
       steps propagate through ``Phi_h = sum_tau M_tau Phi_{h-tau}``.
     """
-    b0 = torch.as_tensor(b0, dtype=torch.float32)
+    device = api.resolve_device(device)
+    b0 = torch.as_tensor(b0, dtype=torch.float32, device=device)
     var_coefs = torch.as_tensor(var_coefs, dtype=torch.float32,
-                                device=b0.device)
-    order = torch.as_tensor(order, device=b0.device)
+                                device=device)
+    order = torch.as_tensor(order, device=device)
     a0 = total_effects_impl(b0, order)
     eye = _eye_like(b0)
     # phis[h] = Phi_h, with Phi_h = 0 for h < 0.

@@ -11,7 +11,9 @@ Skips without a card. Tolerances: off-diagonal moments within atol 2e-6
 bit-identical, and bit-identical across buffer widths, tile shapes, the
 slab-structured launch against per-slab launches, and a batched launch
 against the launches on each element. The bootstrap's two strategies on
-the card: equal edge probabilities, coefficients within 1e-5.
+the card: equal edge probabilities, coefficients within 1e-5. Total
+effects and impulse responses on the card against float64 numpy, within
+1e-5.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.core import api, bootstrap
 from repro_torch.data.simulate import simulate_lingam
+from repro_torch.infer import effects
 from repro_torch.kernels import fused_stats, ops, pairwise_stats
 
 SHAPES = [(64, 4), (100, 5), (257, 10), (511, 16), (1000, 33), (2048, 64),
@@ -273,3 +276,26 @@ def test_cuda_bootstrap_vmap_equals_loop(cuda_device, compaction):
     np.testing.assert_array_equal(res_v.edge_prob, res_l.edge_prob)
     np.testing.assert_allclose(res_v.coef_mean, res_l.coef_mean, atol=1e-5)
     np.testing.assert_allclose(res_v.coef_std, res_l.coef_std, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_effects_and_impulse_responses_match_float64(cuda_device):
+    """The facade's numpy outputs go to the card by default."""
+    rng = np.random.default_rng(0)
+    d, k, horizon = 64, 2, 4
+    perm = rng.permutation(d)
+    b0 = np.zeros((d, d), np.float32)
+    b0[np.ix_(perm, perm)] = np.tril(rng.normal(size=(d, d)) * 0.1, k=-1)
+    mats = (rng.normal(size=(k, d, d)) * 0.02).astype(np.float32)
+    irf = effects.var_irf(b0, perm, mats, horizon)
+    assert irf.is_cuda
+    a0 = np.linalg.inv(np.eye(d) - b0.astype(np.float64))
+    phis = [np.eye(d)]
+    for h in range(1, horizon + 1):
+        phis.append(sum(mats[t].astype(np.float64) @ phis[h - 1 - t]
+                        for t in range(min(h, k))))
+    np.testing.assert_allclose(irf.cpu().numpy(), np.stack(phis) @ a0,
+                               atol=1e-5)
+    t = effects.total_effects_impl(torch.from_numpy(b0).to(cuda_device),
+                                   torch.from_numpy(perm).to(cuda_device))
+    np.testing.assert_allclose(t.cpu().numpy(), a0, atol=1e-5)

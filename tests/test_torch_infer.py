@@ -19,7 +19,8 @@ from repro.infer import effects as jeffects
 from repro.infer import intervene as jintervene
 from repro.stream import stats as jstats
 from repro_torch.core import api, batched
-from repro_torch.data.simulate import simulate_lingam
+from repro_torch.core.var_lingam import VarLiNGAM
+from repro_torch.data.simulate import simulate_lingam, simulate_var_stocks
 from repro_torch.infer import effects, intervene
 from repro_torch.stream import stats
 
@@ -72,6 +73,24 @@ def test_target_effects_row_matches_reference():
         np.testing.assert_allclose(row.numpy(), full[target], atol=ATOL)
 
 
+def test_target_effects_row_of_a_batch_equals_each_fit():
+    xs = torch.from_numpy(np.stack([simulate_lingam(m=1500, d=7, seed=s).data
+                                    for s in range(3)]))
+    fits = batched.fit_many(xs, api.FitConfig(compaction="staged"))
+    full = effects.total_effects(fits)
+    for target in (0, 6, torch.tensor(3)):
+        rows = effects.target_effects_row(fits.adjacency, fits.order, target)
+        assert rows.shape == (3, 7)
+        for k, one in enumerate(fits.unbind()):
+            np.testing.assert_allclose(
+                rows[k].numpy(),
+                effects.target_effects_row(one.adjacency, one.order,
+                                           target).numpy(), atol=1e-6)
+            np.testing.assert_allclose(rows[k].numpy(),
+                                       full[k, int(target)].numpy(),
+                                       atol=ATOL)
+
+
 @pytest.mark.parametrize("nodes", [[1], [0, 4, 5]])
 def test_path_specific_effects_match_reference(nodes):
     _, want, got = _fits(2)
@@ -102,10 +121,30 @@ def test_var_irf_matches_reference(k, horizon):
     b0 = np.zeros((d, d), np.float32)
     b0[np.ix_(perm, perm)] = b_ord  # lower triangular in the order perm
     mats = (rng.normal(size=(k, d, d)) * 0.15).astype(np.float32)
-    got = effects.var_irf(b0, torch.from_numpy(perm), mats, horizon)
+    got = effects.var_irf(b0, torch.from_numpy(perm), mats, horizon,
+                          device="cpu")
     want = jeffects.var_irf(b0, jnp.asarray(perm), mats, horizon)
     assert got.shape == (horizon + 1, d, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_var_irf_of_the_facade_matches_reference():
+    """The facade's numpy outputs passed straight in, as a user calls it."""
+    x, _, _ = simulate_var_stocks(m=1500, d=5, edge_prob=0.3, seed=3)
+    model = VarLiNGAM(device="cpu").fit(x)
+    args = (model.adjacency_matrices_[0], model.causal_order_,
+            model.var_coefs_, 5)
+    got = effects.var_irf(*args, device="cpu")
+    assert got.device.type == "cpu" and got.shape == (6, 5, 5)
+    want = jeffects.var_irf(*(jnp.asarray(a) for a in args[:3]), 5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_var_irf_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        effects.var_irf(np.zeros((3, 3), np.float32), np.arange(3),
+                        np.zeros((1, 3, 3), np.float32), 2)
 
 
 def test_graph_surgery_and_noise_stats_match_reference():
@@ -186,6 +225,10 @@ def test_bootstrap_effects_match_reference_on_its_indices():
 
 
 def test_bootstrap_effects_equal_the_batched_fits_effects():
+    """The intervals come from each resample's own solve (bit for bit on
+    any device); a batched solve of the same fits rounds differently on
+    the card, so it is held within 1e-6, and every resample against
+    float64 ``(I - B)^-1`` within ATOL."""
     gt = simulate_lingam(m=600, d=6, seed=2)
     ci = effects.bootstrap_effects(gt.data, n_sampling=5, seed=1,
                                    device="cpu")
@@ -193,10 +236,18 @@ def test_bootstrap_effects_equal_the_batched_fits_effects():
     fits = batched.bootstrap_fits(
         torch.from_numpy(np.ascontiguousarray(gt.data)), idx,
         api.FitConfig(compaction="staged"))
-    want = effects.effect_ci(effects.total_effects(fits).numpy(), 0.9)
+    each = torch.stack([effects.total_effects(one)
+                        for one in fits.unbind()]).numpy()
+    want = effects.effect_ci(each, 0.9)
     for field in ("mean", "std", "lo", "hi"):
         np.testing.assert_array_equal(getattr(ci, field),
                                       getattr(want, field))
+    np.testing.assert_allclose(each, effects.total_effects(fits).numpy(),
+                               atol=1e-6)
+    eye = np.eye(6)
+    np.testing.assert_allclose(
+        each, np.linalg.inv(eye - fits.adjacency.double().numpy()),
+        atol=ATOL)
     assert ci.n_sampling == 5 and np.isfinite(ci.mean).all()
     assert ci.covers(ci.mean).all()
 
