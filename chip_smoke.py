@@ -55,25 +55,50 @@ any failure of which exits non-zero:
      ordering step, 487 for all 32 resamples) against ``"loop"`` (32 x
      487) on the same indices: orders equal per resample up to ties,
      equal edge probabilities, coefficient statistics within 1e-5; the
-     peak device memory of each strategy; ``bootstrap_effects`` against
+     peak device memory of each strategy, and the "auto" rule's peak
+     model between 1 and 1.5 times the measured vmap peak; ``bootstrap_effects`` against
      the loop's fits' total effects, and those effects (the card's
      triangular solves) against float64 ``(I - B)^-1`` within the
-     solve's componentwise error bound; the vmap bootstrap again
-     untraced and once under ``torch.profiler`` for its idle share; B1
+     solve's componentwise error bound; the vmap bootstrap again under
+     ``torch.profiler`` for its idle share (over the untraced run); B1
      at the batched shape (32, 4000, 487) against its plain version in
      float64, and timed;
- 10. one JSON line listing every ported kernel with its launches on its
+ 10. the serving engine (``CausalDiscoveryEngine``, batch 8) at the
+     stock panel's width: its warm-up with ``tune_mode="auto"`` (the
+     tuning overlay in a temporary directory) searches the pair-block
+     edge T of B1 at (4000, 487) and of B2 at the stream window (2048 x
+     487 in slabs of 256), every candidate bit-equal, and a second
+     warm-up measures nothing; a burst of 8 fit requests at (4000, 487)
+     and 3 at (20,000, 100), one ``fit_many`` per shape, each result
+     against ``api.fit_fn`` on that request alone (orders up to ties,
+     adjacency within 1e-5); 8 monitored sessions at
+     ``varlingam-stream-487`` posted 12 chunks round robin, session 3
+     with a noise-scale break after its window fills: every auto-flush
+     one ``fit_many_from_stats`` per window shape with one B2 launch per
+     ordering step, the last flush of all 8 traced for its idle share
+     and held against each session's own refit, seconds per monitored
+     post, the break alerted on its variable and each alert delivered
+     once by ``poll_alerts``; 16 mixed effect, intervention and RCA
+     queries against the fit results and session ids, each against the
+     direct function on its graph (effects and interventions within 1e-5
+     of max(1, |answer|)), the effects against float64 ``(I - B)^-1`` and
+     the RCA scores and contributions, batched and direct, against float64
+     within their componentwise bounds;
+ 11. one JSON line listing every ported kernel with its launches on its
      path, error, times, bound and ptxas registers and spills;
- 11. last line: {"ok": true, "device": {...}}.
+ 12. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -110,6 +135,16 @@ SOLVE_ABS_FLOOR = 1e-9
 # Thetas and adjacency of a rolling refit against the from-scratch window
 # fit with the same order (tests/test_stream.py).
 ATOL_STREAM = 1e-4
+# The bootstrap's "auto" memory model against its measured peak: an upper
+# bound, over by at most half.
+PEAK_MODEL_MARGIN = 1.5
+# Served effect and intervention answers (batched triangular solves)
+# against the same function on one graph: max |a - b| <= ATOL_QUERY *
+# max(1, max |b|) per answer; a batched and a single solve round
+# differently on the card (1.14e-05 at |T| = 31.5). RCA answers (products
+# over d terms with cancellation) are held to float64 within their
+# componentwise rounding bounds instead.
+ATOL_QUERY = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 SFU_OPS_PER_CLOCK_PER_SM = 16
 SFU_OPS_PER_TERM = 3  # ex2 (exp(-2|u|)), lg2 (log1p), ex2 (exp(-u^2/2))
@@ -359,10 +394,18 @@ def main() -> int:
                                                       WORKLOADS)
     from repro_torch.core import (DirectLiNGAM, VarLiNGAM, api, batched,
                                   bootstrap, ordering)
-    from repro_torch.data.simulate import simulate_lingam, simulate_var_stocks
-    from repro_torch.infer import effects
+    from repro_torch.data.simulate import (simulate_lingam,
+                                           simulate_var_breaks,
+                                           simulate_var_stocks)
+    from repro_torch.infer import effects, intervene, rca
+    from repro_torch.infer import query as query_lib
     from repro_torch.kernels import build, fused_stats, ops, pairwise_stats
-    from repro_torch.stream import StreamConfig, StreamSession, window
+    from repro_torch.kernels.tune import autotune
+    from repro_torch.kernels.tune import cache as tune_cache
+    from repro_torch.kernels.tune import registry as tune_registry
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.stream import (MonitorConfig, StreamConfig,
+                                    StreamSession, stats, window)
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1115,7 +1158,8 @@ def main() -> int:
 
     # The bootstrap: 32 resamples of simulate_lingam at m x d of
     # varlingam-stocks-487, staged compaction. strategy="auto" must pick
-    # the batched engine: 16 n m d bytes = 997 MB <= 1 GiB.
+    # the batched engine: its peak model (bootstrap.vmap_peak_bytes) is
+    # far below the card's free memory.
     n_boot, m_b, d_b = 32, wv.m, wv.d
     t0 = time.perf_counter()
     gt_b = simulate_lingam(m=m_b, d=d_b, seed=0)
@@ -1152,11 +1196,13 @@ def main() -> int:
     peak_bytes["vmap"] = peak_from(base_bytes)
     boot_launches = pairwise_stats.launches
     boot_rows = pairwise_stats.rows_launches
+    peak_model = bootstrap.vmap_peak_bytes(n_boot, m_b, d_b)
     print(f"bootstrap (m={m_b}, d={d_b}, n_sampling={n_boot}, 'staged'), "
           f"strategy 'auto' took {'vmap' if seen['vmap'] else 'loop'} "
-          f"(16 n m d = {16 * n_boot * m_b * d_b / 2**20:.0f} MiB against "
-          f"1 GiB): {vmap_s:.3f} s, {n_boot / vmap_s:.2f} fits/s; B1 "
-          f"launches {boot_launches}, B2 launches {boot_rows}")
+          f"(peak model {peak_model} B against the card's free memory "
+          f"{torch.cuda.mem_get_info(dev)[0]} B): {vmap_s:.3f} s, "
+          f"{n_boot / vmap_s:.2f} fits/s; B1 launches {boot_launches}, B2 "
+          f"launches {boot_rows}")
     if len(seen["vmap"]) != 1 or seen["loop"]:
         fail("strategy 'auto' did not run the batched engine")
     if boot_launches != d_b or boot_rows:
@@ -1182,8 +1228,14 @@ def main() -> int:
     print(f"bootstrap peak device memory above what was allocated before "
           f"(torch.cuda.max_memory_allocated): vmap {peak_bytes['vmap']} B "
           f"({peak_bytes['vmap'] / stack_bytes:.2f} x the {stack_bytes} B "
-          f"resample stack), loop {peak_bytes['loop']} B; the 'auto' rule "
-          f"budgets 4 x the stack = {4 * stack_bytes} B")
+          f"resample stack), loop {peak_bytes['loop']} B; the 'auto' rule's "
+          f"peak model {peak_model} B, {peak_model / peak_bytes['vmap']:.3f}"
+          f" x the measured vmap peak (must lie in [1, {PEAK_MODEL_MARGIN}])")
+    # The model must bound the measured peak (else "auto" could send a
+    # batch that does not fit to the card) without wasting the card.
+    if not 1.0 <= peak_model / peak_bytes["vmap"] <= PEAK_MODEL_MARGIN:
+        fail("the vmap bootstrap's peak model does not fit its measured "
+             "peak")
     fits_l = api.FitResult.stack(seen["loop"])
     orders_v, orders_l = fits_v.order.cpu().numpy(), fits_l.order.cpu().numpy()
     x_b = torch.from_numpy(np.ascontiguousarray(gt_b.data)).to(dev)
@@ -1252,16 +1304,13 @@ def main() -> int:
         fail("the card's total-effect solves exceed their error bound")
     del seen, fits_v, fits_l, ci, want_ci, loop_effs
 
-    # The vmap bootstrap again, untraced, then once traced: the idle share
-    # is 1 - device busy / the untraced median wall time.
+    # The vmap bootstrap again, traced: the idle share is 1 - device busy /
+    # the untraced wall time of the "auto" run above (one untraced run, to
+    # keep the script's time as the serving phase joined it).
     def vmap_bootstrap():
         bootstrap.bootstrap_lingam(gt_b.data, strategy="vmap", **boot_kw)
 
     boot_walls = [vmap_s]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    vmap_bootstrap()
-    boot_walls.append(time.perf_counter() - t0)
     boot_wall = float(np.median(boot_walls))
     b_wall, b_busy, b_kernels = device_busy(vmap_bootstrap)
     if b_busy is None:
@@ -1277,7 +1326,7 @@ def main() -> int:
             f"{name[:60]} {t:.3f} s" for name, t in top))
         print(f"bootstrap (vmap): device busy {b_busy:.3f} s (traced), of "
               f"which B1 {boot_b1_s:.3f} s; idle share {boot_idle:.1%} of "
-              f"the untraced median {boot_wall:.3f} s "
+              f"the untraced run {boot_wall:.3f} s "
               f"({', '.join(f'{w:.3f}' for w in boot_walls)} s); "
               f"{1.0 - b_busy / b_wall:.1%} of the traced {b_wall:.3f} s")
     # B1 at the batched shape of the bootstrap's first step: all 32
@@ -1311,9 +1360,458 @@ def main() -> int:
           f"{batched_bound[2]:.3f} ms)")
     del xs_b, c_b, x_b, idx_b
 
-    # 10. kernels line: launches are those of each kernel's path (the
+    # 10. the serving engine at the stock panel's width: the plan search
+    # of its warm-up, a burst of fit requests, 8 monitored streams with
+    # batched refits and a drift break, and a micro-batch of queries.
+    t_serve = time.perf_counter()
+    tune_dir = tempfile.mkdtemp(prefix="repro-torch-tune-")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(tune_dir,
+                                                        "plans.json")
+    tune_cache.reset_table()
+    engine = serve_engine.CausalDiscoveryEngine(
+        api.FitConfig(compaction="staged"), batch_size=8)
+    # The reference's monitor settings, with alert rings large enough that
+    # no alert of the run is dropped before poll_alerts reads it.
+    stream_cfg = StreamConfig(d=sw.d, chunk=sw.chunk,
+                              window_chunks=sw.window_chunks, lags=sw.lags,
+                              refit_every=sw.refit_every,
+                              monitor=MonitorConfig(max_pending=4096,
+                                                    history=4096))
+    searches = []
+    real_autotune = autotune.autotune_op
+
+    def seen_autotune(*args, **kw):
+        searches.append(real_autotune(*args, **kw))
+        return searches[-1]
+
+    autotune.autotune_op = seen_autotune
+    t0 = time.perf_counter()
+    plans = engine.warmup([(wv.m, wv.d)], tune_mode="auto",
+                          streams=[stream_cfg])
+    warm_s = time.perf_counter() - t0
+    n_searched = len(searches)
+    t0 = time.perf_counter()
+    plans_again = engine.warmup([(wv.m, wv.d)], tune_mode="auto",
+                                streams=[stream_cfg], compile=False)
+    warm2_s = time.perf_counter() - t0
+    autotune.autotune_op = real_autotune
+    warm_rows = []
+    for tp in searches:
+        heur = next(m.plan.tile for m in tp.measurements
+                    if m.plan.source == "heuristic")
+        times = {m.plan.tile: m.seconds * 1e3 for m in tp.measurements}
+        warm_rows.append({"op": tp.op, "shape": list(tp.shape),
+                          "batch": tp.batch, "heuristic": heur,
+                          "chosen": tp.best.tile, "ms": times})
+        print(f"warm-up search {tp.op} {tuple(tp.shape)} batch {tp.batch}: "
+              + ", ".join(f"T={t} {v:.3f} ms" for t, v in times.items())
+              + f" per launch (heuristic T={heur}); chosen T={tp.best.tile}"
+              f"; every candidate's sums bit-equal to the heuristic plan's")
+    print(f"warm-up: {warm_s:.2f} s ({n_searched} searches); again "
+          f"{warm2_s:.2f} s ({len(searches) - n_searched} searches); plans "
+          + "; ".join(f"{k.split('/', 2)[2]}: T={p.tile} ({p.source})"
+                      for k, p in plans.items()))
+    if {tp.op for tp in searches} != {"pairwise_moments",
+                                      "pairwise_moment_sums_chunked"}:
+        fail(f"the warm-up did not search both ops: {searches}")
+    if len(searches) != n_searched or plans_again != plans:
+        fail("the second warm-up measured again")
+    # The host cost of one launch's plan decision (a table hit).
+    t0 = time.perf_counter()
+    for _ in range(10_000):
+        tune_registry.dispatch("pairwise_moment_sums_chunked",
+                               (sw.chunk * sw.window_chunks, sw.d),
+                               chunk=sw.chunk, batch=8, device=dev)
+    dispatch_us = (time.perf_counter() - t0) / 10_000 * 1e6
+    print(f"dispatch: {dispatch_us:.2f} us per launch's plan (a table hit, "
+          f"mean of 10,000)")
+
+    # Fit burst: 8 requests at the stock panel's size, 3 at (20,000, 100):
+    # one fit_many per shape.
+    mid = (20_000, 100)
+    gts = [simulate_lingam(m=wv.m, d=wv.d, seed=s) for s in range(8)]
+    gts += [simulate_lingam(m=mid[0], d=mid[1], seed=s) for s in range(3)]
+    reqs = [serve_engine.FitRequest(data=g.data) for g in gts]
+    fit_calls = []
+    real_fit_many = batched.fit_many
+
+    def seen_fit_many(xs, *args, **kw):
+        fit_calls.append(tuple(xs.shape))
+        return real_fit_many(xs, *args, **kw)
+
+    batched.fit_many = seen_fit_many
+    pairwise_stats.launches = 0
+    pairwise_stats.rows_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    burst_s = time.perf_counter() - t0
+    burst_b1 = pairwise_stats.launches
+    burst_b2 = pairwise_stats.rows_launches
+    batched.fit_many = real_fit_many
+    requests_per_s = len(reqs) / burst_s
+    print(f"fit burst: {len(reqs)} requests in {burst_s:.3f} s, "
+          f"{requests_per_s:.2f} requests/s; fit_many calls "
+          f"{fit_calls}; B1 launches {burst_b1}, B2 launches {burst_b2}")
+    if fit_calls != [(8, wv.m, wv.d), (3, *mid)] or (
+            burst_b1 != wv.d + mid[1] or burst_b2):
+        fail("expected one fit_many per shape and one B1 launch per "
+             "ordering step")
+    serve_cfg = engine.config
+    single_s, adj_err, burst_parted = [], 0.0, []
+    for k, (r, g) in enumerate(zip(reqs, gts)):
+        x_k = torch.from_numpy(np.ascontiguousarray(r.data)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = api.fit_fn(x_k, serve_cfg)
+        o1 = one.order.cpu().numpy()
+        single_s.append(time.perf_counter() - t0)
+        if np.array_equal(o1, r.result.order):
+            adj_err = max(adj_err, float(np.abs(
+                one.adjacency.cpu().numpy() - r.result.adjacency).max()))
+        else:
+            p, ratio = parting_tie(x_k, o1, r.result.order,
+                                   ordering.LocalReducer(), ATOL_F32)
+            burst_parted.append((k, p, ratio))
+        if not (np.isfinite(r.result.adjacency).all() and np.array_equal(
+                np.sort(r.result.order), np.arange(g.data.shape[1]))):
+            fail(f"fit request {k}: malformed result")
+    print(f"fit burst against api.fit_fn on each request alone "
+          f"({sum(single_s):.3f} s for the {len(reqs)} fits): orders equal "
+          f"in {len(reqs) - len(burst_parted)} of {len(reqs)}"
+          + "".join(f"; request {k} parts at position {p} at a tie (score "
+                    f"gap {r:.3f} of its tolerance)"
+                    for k, p, r in burst_parted)
+          + f"; adjacency max diff {adj_err:.3e} where the orders agree "
+          f"(tolerance {ATOL_ADJ}); true edges forward in the served orders "
+          + ", ".join(f"{forward_share(r.result.order, g.adjacency):.3f}"
+                      for r, g in zip(reqs, gts)))
+    if adj_err > ATOL_ADJ:
+        fail("a served fit differs from the single fit")
+
+    # Streams: 8 monitored sessions at varlingam-stream-487, posted round
+    # robin; session 3 carries a noise-scale break after its window fills.
+    n_rows = sw.chunk * n_chunks + 8
+    t0 = time.perf_counter()
+    base = simulate_var_stocks(m=7 * n_rows, d=sw.d, seed=1)[0]
+    series = [base[k * n_rows:(k + 1) * n_rows] for k in range(7)]
+    brk = simulate_var_breaks(m=n_rows, d=sw.d, kind="noise_scale",
+                              at=sw.chunk * (sw.window_chunks + 1),
+                              edge_prob=0.01, seed=0)
+    series.insert(3, brk.series)
+    print(f"stream data on the host ({time.perf_counter() - t0:.1f} s): 7 "
+          f"stationary slices of simulate_var_stocks(m={7 * n_rows}, "
+          f"d={sw.d}, seed=1) and, as session 3, simulate_var_breaks(m="
+          f"{n_rows}, kind='noise_scale', at={brk.at}, edge_prob=0.01): "
+          f"variable {brk.variable}'s noise x3 from chunk "
+          f"{brk.at // sw.chunk}")
+    sids = [engine.open_stream(stream_cfg) for _ in series]
+    flushes, fmfs_calls = [], []
+    real_fmfs = batched.fit_many_from_stats
+    real_flush = engine.flush_streams
+
+    def seen_fmfs(xs, *args, **kw):
+        fmfs_calls.append(tuple(xs.shape))
+        return real_fmfs(xs, *args, **kw)
+
+    def timed_flush():
+        b2, n_calls = pairwise_stats.rows_launches, len(fmfs_calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_flush()
+        torch.cuda.synchronize()
+        flushes.append({"sessions": len(out), "s": time.perf_counter() - t0,
+                        "b2": pairwise_stats.rows_launches - b2,
+                        "calls": fmfs_calls[n_calls:],
+                        "errors": [e.summary()
+                                   for e in engine.last_flush_errors]})
+        return out
+
+    batched.fit_many_from_stats = seen_fmfs
+    engine.flush_streams = timed_flush
+
+    def post(s, k):
+        """One session's post of chunk k: (deltas, host seconds)."""
+        n_f = len(flushes)
+        t0 = time.perf_counter()
+        out = engine.post_chunk(sids[s], series[s][k * sw.chunk:(k + 1)
+                                                   * sw.chunk])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return out, (dt if len(flushes) == n_f else None)
+
+    pairwise_stats.launches = 0
+    pairwise_stats.rows_launches = 0
+    post_unarmed, post_armed = [], []
+    for k in range(n_chunks - 1):
+        for s in range(len(sids)):
+            armed = engine.stream_session(sids[s]).monitor.armed
+            _, dt = post(s, k)
+            if dt is not None:
+                (post_armed if armed else post_unarmed).append(dt)
+    real_flush_n = len(flushes)
+    engine.flush_streams()  # drain: every session's window is refitted
+    # The last round: the 8th post makes all 8 sessions due, and flushes
+    # them in one batched refit, traced for the device's busy time.
+    for s in range(len(sids) - 1):
+        _, dt = post(s, n_chunks - 1)
+        post_armed.append(dt)
+    traced = {}
+
+    def last_post():
+        traced["out"], _ = post(len(sids) - 1, n_chunks - 1)
+
+    f_wall, f_busy, f_kernels = device_busy(last_post)
+    serve_b1 = pairwise_stats.launches
+    serve_b2 = pairwise_stats.rows_launches
+    batched.fit_many_from_stats = real_fmfs
+    del engine.flush_streams
+    final = flushes[-1]
+    for j, f in enumerate(flushes):
+        print(f"flush {j}: {f['sessions']} sessions in {f['s']:.3f} s"
+              f"{' (traced)' if f is final else ''}; fit_many_from_stats "
+              f"calls {f['calls']}; B2 launches {f['b2']}; errors "
+              f"{f['errors']}")
+    if (len(traced["out"]) != len(sids) or final["sessions"] != len(sids)
+            or len(final["calls"]) != 1):
+        fail("the last post did not flush all 8 sessions in one refit")
+    for f in flushes:
+        if (f["errors"] or f["b2"] != sw.d * len(f["calls"])
+                or sum(c[0] for c in f["calls"]) != f["sessions"]):
+            fail("a flush is not one fit_many_from_stats per window shape "
+                 "with one B2 launch per ordering step")
+    if serve_b1 or serve_b2 != sw.d * len(fmfs_calls):
+        fail(f"stream B2 launches {serve_b2} (B1 {serve_b1}) against "
+             f"{sw.d} per batched refit")
+    full = [f["s"] for f in flushes[:real_flush_n]
+            if f["sessions"] == len(sids) and len(f["calls"]) == 1]
+    flush_s = float(np.median(full))
+    if f_busy is None:
+        flush_idle = None
+        print("traced flush: torch.profiler shows no device time; idle "
+              "share not measured")
+    else:
+        flush_idle = 1.0 - f_busy / flush_s
+        top = sorted(f_kernels.items(), key=lambda kv: -kv[1])[:5]
+        print("traced flush, device time by kernel: " + "; ".join(
+            f"{name[:60]} {t * 1e3:.1f} ms" for name, t in top))
+        print(f"traced flush of 8: device busy {f_busy:.3f} s; idle share "
+              f"{flush_idle:.1%} of the untraced median {flush_s:.3f} s "
+              f"({', '.join(f'{v:.3f}' for v in full)} s); "
+              f"{1.0 - f_busy / f_wall:.1%} of the traced {f_wall:.3f} s")
+    # The last flush's deltas against each session's own refit_now on the
+    # same window (a refit leaves the window's state as it is).
+    refit_s, stream_adj, stream_parted = [], 0.0, []
+    red_w = ordering.LocalReducer(moment_chunk=sw.chunk)
+    for s, sid in enumerate(sids):
+        sess = engine.stream_session(sid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solo = sess.rolling.refit()
+        torch.cuda.synchronize()
+        refit_s.append(time.perf_counter() - t0)
+        got, want = (f.result.order.cpu().numpy()
+                     for f in (sess.last_fit, solo))
+        if np.array_equal(got, want):
+            stream_adj = max(stream_adj, max(
+                float(np.abs(a - b).max())
+                for a, b in zip(sess.last_fit.thetas, solo.thetas)))
+        else:
+            plan = sess.rolling.prepare_refit()
+            x_w = api.standardize_from_stats(plan.resid, plan.resid_mean,
+                                             plan.resid_cov)
+            p, ratio = parting_tie(x_w, want, got, red_w, ATOL_F32)
+            stream_parted.append((s, p, ratio))
+    print(f"batched flush of 8 against each session's refit_now on the same "
+          f"window: orders equal in {len(sids) - len(stream_parted)} of "
+          f"{len(sids)}" + "".join(
+              f"; session {s} parts at position {p} at a tie (score gap "
+              f"{r:.3f} of its tolerance)" for s, p, r in stream_parted)
+          + f"; thetas max diff {stream_adj:.3e} where the orders agree "
+          f"(tolerance {ATOL_ADJ}); flush {flush_s:.3f} s against "
+          f"{sum(refit_s):.3f} s for the 8 refits one by one "
+          f"({', '.join(f'{v:.3f}' for v in refit_s)} s)")
+    if stream_adj > ATOL_ADJ:
+        fail("a batched refit differs from the session's own refit")
+    # The monitor's own cost on one post: its drift transform, the copy of
+    # the statistics to the host and the CUSUM update, on the last chunk.
+    sess = engine.stream_session(sids[0])
+    rows_last = series[0][(n_chunks - 2) * sw.chunk:n_chunks * sw.chunk]
+    cs = stats.from_chunk(torch.from_numpy(
+        window.lagged_rows(rows_last[sw.chunk - sw.lags:], sw.lags)).to(dev))
+    mon = copy.deepcopy(sess.monitor)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        mon.update(cs, chunk_index=0)
+    monitor_ms = (time.perf_counter() - t0) / 20 * 1e3
+    post_unarmed_s = float(np.median(post_unarmed))
+    post_armed_s = float(np.median(post_armed))
+    print(f"seconds per post: {post_armed_s:.4f} monitored (median of "
+          f"{len(post_armed)} posts that did not flush), {post_unarmed_s:.4f}"
+          f" before the monitors armed ({len(post_unarmed)} posts, windows "
+          f"filling); the monitor's update alone {monitor_ms:.3f} ms (one "
+          f"device-to-host copy of the chunk's count and 3 x {sw.d} "
+          f"statistics)")
+    alerts = engine.poll_alerts()
+    again = engine.poll_alerts()
+    alert_rows = {}
+    for sid in sids:
+        mine = [a for a in alerts if a.sid == sid]
+        if not mine:
+            continue
+        kinds = {k: sum(a.kind == k for a in mine)
+                 for k in sorted({a.kind for a in mine})}
+        variables = sorted({a.variable for a in mine})
+        alert_rows[sid] = len(mine)
+        print(f"alerts of {sid}{' (the break)' if sid == sids[3] else ''}: "
+              f"{len(mine)} {kinds} at chunks "
+              f"{sorted({a.chunk_index for a in mine})} on "
+              f"{len(variables)} variables (lowest {variables[:5]}, highest "
+              f"{variables[-3:]}), statistics "
+              f"{min(a.stat for a in mine):+.1f} to "
+              f"{max(a.stat for a in mine):+.1f}")
+    for a in alerts:
+        if a.sid == sids[3] and a.variable == brk.variable:
+            print(f"alert {a.sid}: {a.summary()}")
+    on_break = [a for a in alerts if a.sid == sids[3]]
+    false_alarms = [a for a in alerts if a.sid != sids[3]]
+    hit = [a for a in on_break if a.variable == brk.variable
+           and a.chunk_index > brk.at // sw.chunk]
+    print(f"poll_alerts: {len(alerts)} alerts, {len(on_break)} on session 3 "
+          f"({len(hit)} on its broken variable {brk.variable} after the "
+          f"break, first at chunk "
+          f"{min((a.chunk_index for a in hit), default=None)}), "
+          f"{len(false_alarms)} on the 7 stationary sessions (false alarms);"
+          f" a second poll returned {len(again)}")
+    if not hit or again:
+        fail("the break was not alerted on its variable, or an alert was "
+             "delivered twice")
+
+    # Queries: 16 mixed requests against the fit results and session ids.
+    fitted = [r.result for r in reqs[:8]]
+    rng_q = np.random.default_rng(0)
+    queries = (
+        [query_lib.EffectQuery(graph=g) for g in fitted[:3]]
+        + [query_lib.EffectQuery(graph=sids[s]) for s in (0, 3)]
+        + [query_lib.InterventionQuery(graph=fitted[0],
+                                       do={int(gts[0].order[0]): 1.0}),
+           query_lib.InterventionQuery(graph=fitted[3], do={
+               5: -1.0, wv.d // 3: 2.0}),
+           query_lib.InterventionQuery(graph=fitted[4], do={wv.d // 5: 1.0}),
+           query_lib.InterventionQuery(graph=sids[1], do={0: 0.5}),
+           query_lib.InterventionQuery(graph=sids[2], do={})]
+        + [query_lib.RCAQuery(graph=fitted[k], rows=gts[k].data[:64],
+                              target=t)
+           for k, t in ((0, 10), (5, wv.d // 2), (6, None), (7, 1))]
+        + [query_lib.RCAQuery(graph=sids[s], rows=series[s][-64:],
+                              target=t)
+           for s, t in ((3, brk.variable), (4, 3))])
+    rng_q.shuffle(queries)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.query(queries)
+    query_s = time.perf_counter() - t0
+
+    def query_err(got, want):
+        want = np.asarray(want, np.float64)
+        return float(np.abs(got - want).max()) / max(1.0, float(
+            np.abs(want).max()))
+
+    def gamma(n):
+        return n * 2.0**-24 / (1.0 - n * 2.0**-24)
+
+    q_err, solve_q, rca_q = {}, 0.0, 0.0
+    for q in queries:
+        res = q.graph.result
+        if isinstance(q, query_lib.EffectQuery):
+            kind = "effect"
+            direct = effects.total_effects(res).cpu().numpy()
+            err = query_err(q.effects, direct)
+            dq = q.graph.d
+            l64 = (torch.eye(dq, dtype=torch.float64, device=dev)
+                   - res.adjacency.double())
+            t64 = torch.linalg.inv(l64)
+            t32 = torch.from_numpy(q.effects).to(dev).double()
+            bound = gamma(dq) * (t64.abs() @ l64.abs() @ t32.abs())
+            solve_q = max(solve_q, float(((t32 - t64).abs()
+                                          - SOLVE_ABS_FLOOR)
+                                         .div(bound.clamp_min(1e-300))
+                                         .max()))
+        elif isinstance(q, query_lib.InterventionQuery):
+            kind = "intervention"
+            mean = None if q.graph.sid is None else q.graph.mean
+            mu, cov = intervene.interventional_moments(res, q.do, mean=mean)
+            err = max(query_err(q.mean, mu), query_err(q.cov, cov))
+        else:
+            kind = "rca"
+            direct = rca.attribute(
+                api.FitResult(res.order, res.adjacency, q.graph.noise_var),
+                q.rows, mean=q.graph.mean, target=q.target)
+            err = query_err(q.result.scores, direct.scores)
+            # A float32 product over d terms carries rounding up to
+            # gamma_{d+2} |x - mu| |I - B|^T (Higham, Thm 3.5) and the
+            # batched and single products round differently: hold both
+            # answers to the float64 scores within that componentwise
+            # bound (plus 4 ulps for the scaling), and the contributions
+            # to e64 * T64[target] within the product's and the
+            # row solve's bounds (gamma_d |t| |I - B| |T|).
+            dq = q.graph.d
+            l64 = (torch.eye(dq, dtype=torch.float64, device=dev)
+                   - res.adjacency.double())
+            xc = (torch.from_numpy(q.rows).to(dev).double()
+                  - q.graph.mean.double())
+            e64 = xc @ l64.T
+            be = gamma(dq + 2) * (xc.abs() @ l64.abs().T)
+            sd = torch.sqrt(torch.clamp(q.graph.noise_var.double(),
+                                        min=1e-12))
+            s64 = e64 / sd
+            bs = be / sd + 4 * 2.0**-24 * s64.abs() + SOLVE_ABS_FLOOR
+            got = [(a.scores, s64, bs) for a in (q.result, direct)]
+            if q.target is not None:
+                t64 = torch.linalg.inv(l64)
+                trow = t64[q.target]
+                bt = gamma(dq) * (trow.abs() @ l64.abs() @ t64.abs())
+                c64 = e64 * trow
+                bc = (be * (trow.abs() + bt) + e64.abs() * bt
+                      + 2 * 2.0**-24 * c64.abs() + SOLVE_ABS_FLOOR)
+                got += [(a.contributions, c64, bc)
+                        for a in (q.result, direct)]
+                err = max(err, query_err(q.result.contributions,
+                                         direct.contributions))
+            for ans, want, bound in got:
+                rca_q = max(rca_q, float(
+                    ((torch.from_numpy(ans).to(dev).double() - want).abs()
+                     / bound).max()))
+        if not all(np.isfinite(np.asarray(a)).all() for a in (
+                (q.effects,) if kind == "effect" else (q.mean, q.cov)
+                if kind == "intervention" else (q.result.scores,))):
+            fail(f"a {kind} answer is not finite")
+        q_err[kind] = max(q_err.get(kind, 0.0), err)
+    print(f"queries: {len(queries)} mixed (5 effect, 5 intervention, 6 RCA; "
+          f"fit results and session ids) in {query_s:.3f} s; max |answer - "
+          f"the direct function on that graph| / max(1, max |direct|): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in q_err.items())
+          + f" (tolerance {ATOL_QUERY} for effects and interventions); "
+          f"effects against float64 inv(I - B): largest share of the "
+          f"componentwise bound {solve_q:.3e}; RCA scores and "
+          f"contributions, batched and direct, against float64: largest "
+          f"share of their componentwise bounds {rca_q:.3e} (each must be "
+          f"<= 1)")
+    if (max(q_err["effect"], q_err["intervention"]) > ATOL_QUERY
+            or not solve_q <= 1.0 or not rca_q <= 1.0):
+        fail("a query answer disagrees with its direct function")
+    del engine, reqs, gts, series, base, queries, fitted
+    shutil.rmtree(tune_dir)
+    del os.environ["REPRO_TORCH_TUNE_CACHE"]
+    tune_cache.reset_table()
+    serve_s = time.perf_counter() - t_serve
+    print(f"serving phase: {serve_s:.1f} s")
+
+    # 11. kernels line: launches are those of each kernel's path (the
     # lingam-1m-100 fit, the rolling stream, B3's entry point; for B1 also
-    # the vmap bootstrap).
+    # the vmap bootstrap and the serving engine's fit burst, for B2 the
+    # serving engine's batched refits).
     def regs(*entries):
         return {e: ptxas[e] for e in entries if e in ptxas}
 
@@ -1347,7 +1845,13 @@ def main() -> int:
         "bootstrap_loop_s": loop_s,
         "bootstrap_idle_share": boot_idle,
         "bootstrap_vmap_peak_bytes": peak_bytes["vmap"],
+        "bootstrap_peak_model_bytes": peak_model,
         "bootstrap_loop_peak_bytes": peak_bytes["loop"],
+        "serving_launches": burst_b1,
+        "serving_fit_burst_s": burst_s,
+        "serving_requests_per_s": requests_per_s,
+        "warmup_search": [r for r in warm_rows
+                          if r["op"] == "pairwise_moments"],
         "ptxas": b12_ptxas,
     }, {
         "name": "pairwise_moment_sums_rows",
@@ -1370,6 +1874,15 @@ def main() -> int:
         "refit_idle_share": refit_idle,
         "refit_s": refit_wall,
         "refit_traced_s": prof_wall,
+        "serving_launches": serve_b2,
+        "serving_flush_s": flush_s,
+        "serving_refits_one_by_one_s": sum(refit_s),
+        "serving_flush_idle_share": flush_idle,
+        "serving_post_s": post_armed_s,
+        "serving_monitor_update_ms": monitor_ms,
+        "serving_dispatch_us": dispatch_us,
+        "warmup_search": [r for r in warm_rows
+                          if r["op"] == "pairwise_moment_sums_chunked"],
         "ptxas": b12_ptxas,
     }, {
         "name": "fused_moment_sums",
@@ -1396,7 +1909,7 @@ def main() -> int:
           f"{worst:.3e}, batched B1 {worst_batched:.3e}, B2 {worst_rows:.3e} "
           f"per sample, B3 {worst_fused:.3e} per sample)")
 
-    # 11. last line
+    # 12. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

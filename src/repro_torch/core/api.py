@@ -51,6 +51,14 @@ class FitConfig:
     intermediate is O(chunk * d^2) whatever m is. Valid with backend
     ``None``, ``"cuda"`` or ``"blocked"``.
 
+    ``tune`` selects how the kernels' launch plans are decided
+    (:mod:`repro_torch.kernels.tune`): ``"off"`` -- the deterministic
+    heuristic, no table reads; ``"cache"`` (default) -- tuned plans from
+    the persistent table, heuristic fallback, never measures; ``"auto"``
+    -- a timed search on a table miss, persisted to the local overlay.
+    Tuned and heuristic plans give bit-identical moments, so ``tune``
+    never changes results, only speed.
+
     ``prune_kwargs`` is stored as a sorted tuple of (key, value) pairs so
     the config stays hashable; a dict is normalized on construction.
     """
@@ -63,6 +71,7 @@ class FitConfig:
     compaction_frac: float = 0.25
     min_stage: int = 8
     moment_chunk: Optional[int] = None
+    tune: str = "cache"
 
     def __post_init__(self):
         if isinstance(self.prune_kwargs, dict):
@@ -70,6 +79,10 @@ class FitConfig:
                 self, "prune_kwargs", tuple(sorted(self.prune_kwargs.items()))
             )
         ops.check_backend(self.backend)
+        if self.tune not in ("off", "cache", "auto"):
+            raise ValueError(
+                f"tune must be 'off', 'cache', or 'auto', got {self.tune!r}"
+            )
         if self.compaction not in ("none", "staged"):
             raise ValueError(f"unknown compaction: {self.compaction}")
         if self.moment_chunk is not None:
@@ -167,7 +180,8 @@ def _check_device(x):
 
 def _order_for_config(x, config: FitConfig):
     reducer = ordering.LocalReducer(backend=config.backend,
-                                    moment_chunk=config.moment_chunk)
+                                    moment_chunk=config.moment_chunk,
+                                    tune=config.tune)
     if config.compaction == "staged":
         return ordering.compact_order_impl(
             x, reducer, frac=config.compaction_frac,

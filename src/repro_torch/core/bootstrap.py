@@ -18,8 +18,12 @@ Two execution strategies share one index matrix drawn on the device
   * ``strategy="loop"`` -- one ``fit_fn`` call per resample, in O(m * d)
     memory: the fallback for shapes whose resample stack is too large,
     and the equivalence oracle of the engine's tests.
-  * ``strategy="auto"`` (default) -- vmap when ~4x the resample stack
-    fits ``max_vmap_bytes`` (default 1 GiB), loop otherwise.
+  * ``strategy="auto"`` (default) -- vmap when its memory fits, loop
+    otherwise. On the card the need is :func:`vmap_peak_bytes`, a model
+    of the batched fit's own buffers, and the budget the device's free
+    memory (or ``max_vmap_bytes`` when given). On the CPU it is the
+    reference's rule: ~4x the resample stack against ``max_vmap_bytes``
+    (default 1 GiB).
 
 Pass ``config=FitConfig(...)`` to pin every estimator setting (both
 strategies honor it verbatim); ``model=DirectLiNGAM(...)`` adopts all of
@@ -38,8 +42,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import pairwise_stats
+
 from . import api, batched
 from .api import FitConfig
+
+_CPU_VMAP_BYTES = 1 << 30  # the reference's budget
 
 
 @dataclasses.dataclass
@@ -93,6 +101,38 @@ def _summarize(coefs: np.ndarray, threshold: float) -> BootstrapResult:
     )
 
 
+def vmap_peak_bytes(n_sampling: int, m: int, d: int) -> int:
+    """Model of the vmap bootstrap's peak device memory: kernel B1's two
+    (n_sampling, n_z, d, d) float32 partial-sum buffers at full width,
+    the float32 resample stack and its float64 copy (the ordering's
+    float64 gram), and one fit's (d, d, d) float32 pruning system (the
+    pruning runs per resample). It counts these as if all were live at
+    once, so it errs high: the float64 copy is freed before B1 runs."""
+    n_z = pairwise_stats.slab_plan(m).n_z
+    stack = 4 * n_sampling * m * d
+    return 2 * 4 * n_sampling * n_z * d * d + 3 * stack + 4 * d ** 3
+
+
+def _auto_strategy(n_sampling, m, d, device, max_vmap_bytes) -> str:
+    """The ``"auto"`` choice: vmap when its memory fits the budget."""
+    if device.type == "cuda":
+        need = vmap_peak_bytes(n_sampling, m, d)
+        if max_vmap_bytes is None:
+            free, _ = torch.cuda.mem_get_info(device)
+            # Memory the caching allocator holds but does not use is free
+            # to the batched fit too.
+            max_vmap_bytes = free + (torch.cuda.memory_reserved(device)
+                                     - torch.cuda.memory_allocated(device))
+    else:
+        # The batch holds several live (n_sampling, m, d) fp32 buffers at
+        # once (resample stack, working data, standardized view), so
+        # budget ~4x the raw stack.
+        need = 4 * (4 * n_sampling * m * d)
+        if max_vmap_bytes is None:
+            max_vmap_bytes = _CPU_VMAP_BYTES
+    return "vmap" if need <= max_vmap_bytes else "loop"
+
+
 def bootstrap_lingam(
     x,
     n_sampling: int = 20,
@@ -102,24 +142,23 @@ def bootstrap_lingam(
     model=None,
     strategy: str = "auto",
     config: Optional[FitConfig] = None,
-    max_vmap_bytes: int = 1 << 30,
+    max_vmap_bytes: Optional[int] = None,
     device="cuda",
 ) -> BootstrapResult:
     """Edge probabilities and coefficient statistics over ``n_sampling``
     resamples of the rows of ``x`` (m, d), fitted on ``device`` (raises
-    without a card unless ``device="cpu"``)."""
+    without a card unless ``device="cpu"``). ``max_vmap_bytes`` is the
+    ``"auto"`` rule's budget (None: the card's free memory, or 1 GiB on
+    the CPU)."""
     x = np.ascontiguousarray(x, dtype=np.float32)
     m, d = x.shape
+    device = api.resolve_device(device)
     if strategy == "auto":
-        # The batch holds several live (n_sampling, m, d) fp32 buffers at
-        # once (resample stack, working data, standardized view), so
-        # budget ~4x the raw stack.
-        est_bytes = 4 * (4 * n_sampling * m * d)
-        strategy = "vmap" if est_bytes <= max_vmap_bytes else "loop"
+        strategy = _auto_strategy(n_sampling, m, d, device, max_vmap_bytes)
     if strategy not in ("vmap", "loop"):
         raise ValueError(f"unknown strategy: {strategy}")
     cfg = _resolve_config(backend, model, config, strategy)
-    xt = torch.as_tensor(x, device=api.resolve_device(device))
+    xt = torch.as_tensor(x, device=device)
     indices = batched.resample_indices(seed, n_sampling, m, device=xt.device)
 
     if strategy == "vmap":

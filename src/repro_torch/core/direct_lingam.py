@@ -33,6 +33,7 @@ class DirectLiNGAM:
     prune_threshold: float = 0.0
     prune_kwargs: dict = dataclasses.field(default_factory=dict)
     compaction: str = "none"
+    tune: str = "cache"
     device: str = "cuda"
 
     causal_order_: Optional[np.ndarray] = None
@@ -48,6 +49,7 @@ class DirectLiNGAM:
             prune_threshold=self.prune_threshold,
             prune_kwargs=dict(self.prune_kwargs),
             compaction=self.compaction,
+            tune=self.tune,
         )
 
     def fit(self, x) -> "DirectLiNGAM":

@@ -60,16 +60,20 @@ class LocalReducer:
         (never TF32)
       * ``moment_rows(x_std, c) -> (M1, M2)`` pairwise residual moment
         means for all (i, j); with ``moment_chunk`` set, accumulated over
-        (moment_chunk, d) sample slabs (``ops.pairwise_moments_chunked``)
+        (moment_chunk, d) sample slabs (``ops.pairwise_moments_chunked``);
+        the kernel's launch plan comes from the dispatcher in mode
+        ``tune``
       * ``col_moments(x_std) -> (cm1, cm2)`` per-column nonlinear moments
         for the H(x_i) entropies
       * ``standardize(x) -> (x_std, c, mu, var)``
     """
 
-    def __init__(self, backend: str = None, moment_chunk: int = None):
+    def __init__(self, backend: str = None, moment_chunk: int = None,
+                 tune: str = "cache"):
         ops.check_backend(backend)
         self.backend = backend
         self.moment_chunk = moment_chunk
+        self.tune = tune
 
     def mean_over_samples(self, v):
         return (v.sum(dim=-2, dtype=torch.float64) / v.shape[-2]).float()
@@ -84,8 +88,10 @@ class LocalReducer:
     def moment_rows(self, x_std, c):
         if self.moment_chunk:
             return ops.pairwise_moments_chunked(
-                x_std, c, chunk=self.moment_chunk, backend=self.backend)
-        return ops.pairwise_moments(x_std, c, backend=self.backend)
+                x_std, c, chunk=self.moment_chunk, backend=self.backend,
+                tune=self.tune)
+        return ops.pairwise_moments(x_std, c, backend=self.backend,
+                                    tune=self.tune)
 
     def col_moments(self, x_std):
         return measures.nonlinear_moments(x_std, axis=-2)

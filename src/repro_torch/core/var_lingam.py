@@ -64,6 +64,7 @@ class VarLiNGAM:
     prune_method: str = "ols"
     prune_threshold: float = 0.0
     compaction: str = "none"
+    tune: str = "cache"
     device: str = "cuda"
 
     causal_order_: Optional[np.ndarray] = None
@@ -78,6 +79,7 @@ class VarLiNGAM:
             prune_method=self.prune_method,
             prune_threshold=self.prune_threshold,
             compaction=self.compaction,
+            tune=self.tune,
         )
 
     def fit(self, x) -> "VarLiNGAM":

@@ -9,11 +9,17 @@ same arguments it returns the same arrays as the JAX package's
 ``simulate_var_stocks`` -- the paper's section 4.2 stand-in: a stationary
 VAR(1) series with a sparse LiNGAM instantaneous graph (stock-like), the
 same arrays as ``repro.data.simulate.simulate_var_stocks``.
+
+``simulate_var_breaks`` -- the same VAR(1) + LiNGAM family with one
+structural break (noise scale, weight shift or edge flip), the drift
+monitor's test data: the same arrays as
+``repro.data.simulate.simulate_var_breaks``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -109,3 +115,110 @@ def simulate_var_stocks(
     for t in range(1, m):
         x[t] = inv @ (m1 @ x[t - 1] + e[t])
     return x.astype(np.float32), b0, m1
+
+
+BREAK_KINDS = ("edge_flip", "weight_shift", "noise_scale")
+
+
+@dataclasses.dataclass
+class VarBreak:
+    """Ground truth of one simulated structural break."""
+
+    series: np.ndarray      # (m, d) float32, break at row ``at``
+    kind: str               # which mechanism changed
+    at: int                 # first row generated by the new mechanism
+    variable: int           # the variable whose mechanism changed
+    b0_pre: np.ndarray      # (d, d) instantaneous graph before
+    b0_post: np.ndarray     # (d, d) after (== pre for noise_scale)
+    m1: np.ndarray          # (d, d) lag-1 matrix (unchanged)
+
+
+def simulate_var_breaks(
+    m: int = 4000,
+    d: int = 12,
+    kind: str = "noise_scale",
+    at: Optional[int] = None,
+    magnitude: float = 3.0,
+    edge_prob: float = 0.15,
+    ar_scale: float = 0.2,
+    seed: int = 0,
+) -> VarBreak:
+    """VAR(1)+LiNGAM series with one structural break at row ``at``
+    (default: mid-series). Three break kinds, matching the drift
+    monitor's alert taxonomy:
+
+    * ``"noise_scale"``  — one variable's exogenous-noise scale is
+      multiplied by ``magnitude`` (graph unchanged);
+    * ``"weight_shift"`` — one existing instantaneous edge's weight is
+      shifted by ``magnitude`` times its magnitude (sign kept; the
+      intercept-free analogue of a level shift, surfacing through the
+      residual's second moments);
+    * ``"edge_flip"``    — one instantaneous edge is removed and a new
+      one (same child, different parent) appears, breaking the served
+      graph's residual independence.
+
+    The affected ``variable`` is always the *child* of the changed
+    mechanism — the variable whose structural equation no longer holds
+    — which is what the monitor should implicate. Pre-break dynamics
+    come from the :func:`simulate_var_stocks` construction (laplace
+    noise, stationarity-guarded lag matrix) so stationary-stream
+    false-alarm calibration and break detection share one process
+    family.
+    """
+    if kind not in BREAK_KINDS:
+        raise ValueError(f"kind must be one of {BREAK_KINDS}, got {kind!r}")
+    rng = np.random.default_rng(seed)
+    at = m // 2 if at is None else int(at)
+
+    b0 = np.zeros((d, d))
+    for i in range(1, d):
+        parents = rng.random(i) < edge_prob
+        b0[i, :i][parents] = rng.standard_normal(parents.sum()) * 0.5
+    # Guarantee at least one edge to break (tiny d / unlucky seed).
+    if not np.any(b0):
+        b0[d - 1, 0] = 0.5
+    m1 = rng.standard_normal((d, d)) * (rng.random((d, d)) < edge_prob)
+    m1 *= ar_scale
+    a = np.linalg.solve(np.eye(d) - b0, m1)
+    rad = np.max(np.abs(np.linalg.eigvals(a)))
+    if rad >= 0.95:
+        m1 *= 0.9 / rad
+
+    # Break the strongest edge: the change must be statistically
+    # meaningful for detection-delay measurements to mean anything.
+    ei, ej = np.unravel_index(np.argmax(np.abs(b0)), b0.shape)
+    noise_scale = np.ones(d)
+    b0_post = b0.copy()
+    if kind == "noise_scale":
+        variable = int(ei)
+        scale_post = noise_scale.copy()
+        scale_post[variable] = magnitude
+    elif kind == "weight_shift":
+        variable = int(ei)
+        b0_post[ei, ej] += np.sign(b0[ei, ej]) * magnitude * abs(b0[ei, ej])
+        scale_post = noise_scale
+    else:  # edge_flip
+        variable = int(ei)
+        b0_post[ei, ej] = 0.0
+        # New parent for the same child: any earlier variable without
+        # an existing edge into it (fall back to re-weighting ej).
+        free = [j for j in range(ei) if j != ej and b0[ei, j] == 0.0]
+        nj = free[rng.integers(len(free))] if free else int(ej)
+        b0_post[ei, nj] = np.sign(rng.standard_normal() + 1e-9) * (
+            magnitude * 0.3
+        )
+        scale_post = noise_scale
+
+    inv_pre = np.linalg.inv(np.eye(d) - b0)
+    inv_post = np.linalg.inv(np.eye(d) - b0_post)
+    x = np.zeros((m, d))
+    e = rng.laplace(0.0, 1.0, size=(m, d))
+    for t in range(1, m):
+        if t < at:
+            x[t] = inv_pre @ (m1 @ x[t - 1] + e[t] * noise_scale)
+        else:
+            x[t] = inv_post @ (m1 @ x[t - 1] + e[t] * scale_post)
+    return VarBreak(
+        series=x.astype(np.float32), kind=kind, at=at, variable=variable,
+        b0_pre=b0, b0_post=b0_post, m1=m1,
+    )

@@ -11,10 +11,14 @@ and runs on the fit's device:
   * :mod:`repro_torch.infer.intervene` -- do-operator graph surgery and
     interventional means/covariances from observational moments
     (the moment store's included: no row re-reads).
-
-Root-cause attribution and the query engine (the reference's
-``infer/rca.py`` and ``infer/query.py``) need the kernel tuner and
-telemetry and are not ported yet.
+  * :mod:`repro_torch.infer.rca` -- root-cause attribution of anomalous
+    samples by noise-term decomposition ``e = (I - B) x``.
+  * :mod:`repro_torch.infer.query` --
+    :class:`~repro_torch.infer.query.QueryEngine`: admits effect,
+    intervention and RCA requests against fitted or streaming graphs and
+    answers each (kind, shape) group as one batched computation
+    (:meth:`repro_torch.serve.engine.CausalDiscoveryEngine.query` is the
+    serving-side entry).
 """
 
 from .effects import (  # noqa: F401
@@ -33,4 +37,18 @@ from .intervene import (  # noqa: F401
     interventional_moments,
     mutilate,
     noise_stats,
+)
+from .query import (  # noqa: F401
+    EffectQuery,
+    FittedGraph,
+    InterventionQuery,
+    QueryEngine,
+    RCAQuery,
+)
+from .rca import (  # noqa: F401
+    RCAResult,
+    attribute,
+    drift_root_candidates,
+    noise_scores_impl,
+    noise_terms_impl,
 )

@@ -86,14 +86,18 @@ def target_effects_row(adjacency, order, target):
 
     A single transposed unit-triangular solve, O(d^2) rather than the
     full O(d^3) matrix solve. ``target`` is an int or a 0-d tensor; over
-    a batch of fits the rows come out (b, d), one target for all.
+    a batch of fits the rows come out (b, d), for one target for all or
+    a (b,) tensor of targets, one per fit.
     """
     b = adjacency.float()
     order = order.long()
     d = b.shape[-1]
     bo = _permute(b, order)
     pos = _positions(order)
-    rhs = torch.nn.functional.one_hot(pos[..., target], d).to(b.dtype)
+    target = torch.as_tensor(target, device=pos.device).expand(
+        pos.shape[:-1])
+    rhs = torch.nn.functional.one_hot(
+        torch.gather(pos, -1, target[..., None])[..., 0], d).to(b.dtype)
     z = torch.linalg.solve_triangular(
         (_eye_like(b) - bo).mT, rhs[..., None], upper=True,
         unitriangular=True,

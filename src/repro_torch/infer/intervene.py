@@ -71,25 +71,28 @@ def noise_stats(adjacency, mean, cov):
 
 
 def interventional_mean_impl(adjacency, order, do_mask, do_values, noise_mean):
-    """(d,) post-intervention mean by triangular solve in causal order."""
+    """(d,) post-intervention mean by triangular solve in causal order;
+    over a leading batch axis of every argument, (b, d)."""
     b = mutilate(adjacency.float(), do_mask)
     order = order.long()
     c = torch.where(do_mask, do_values, noise_mean).float()
     bo = _permute(b, order)
     eye = torch.eye(b.shape[-1], dtype=b.dtype, device=b.device)
     mu_ord = torch.linalg.solve_triangular(
-        eye - bo, c[order][:, None], upper=False, unitriangular=True
-    )[:, 0]
-    return mu_ord[_positions(order)]
+        eye - bo, torch.gather(c, -1, order)[..., None], upper=False,
+        unitriangular=True,
+    )[..., 0]
+    return torch.gather(mu_ord, -1, _positions(order))
 
 
 def interventional_cov_impl(adjacency, order, do_mask, noise_var):
     """(d, d) post-intervention covariance ``A' D' A'^T`` (intervened
-    variables are pinned: zero variance rows/columns)."""
+    variables are pinned: zero variance rows/columns); over a leading
+    batch axis, (b, d, d)."""
     b = mutilate(adjacency.float(), do_mask)
     a = total_effects_impl(b, order)
     var = torch.where(do_mask, 0.0, noise_var.float())
-    return (a * var[None, :]) @ a.T
+    return (a * var[..., None, :]) @ a.mT
 
 
 def interventional_moments(

@@ -12,7 +12,14 @@
                      peak memory.
 
 All backends return (M1, M2) of shape (d, d) fp32 equal up to fp32
-accumulation order. Every entry also takes a leading batch axis, x_std
+accumulation order. The kernels' launch plans come from the dispatcher
+(:func:`repro_torch.kernels.tune.dispatch`): ``tune`` selects its mode
+(``"off"`` heuristic, ``"cache"``, ``"auto"``) and ``plan`` pins an
+explicit :class:`~repro_torch.kernels.tune.Plan` (the autotuner measuring
+a candidate); tuned and heuristic plans give bit-identical moments (the
+contract on :mod:`repro_torch.kernels.tune.registry`), and the plain
+backends have nothing to plan. Every entry also takes a leading batch
+axis, x_std
 (b, m, d) and c (b, d, d), as the reference's ``pairwise_moments`` does
 (``repro/kernels/ops.py``): on the card one kernel launch over the batch
 grid axis, with ``"ref"`` / ``"blocked"`` a loop over the elements.
@@ -93,7 +100,8 @@ def pairwise_moments_blocked(x_std, c, block: int = 64):
     return s1 * inv_m, s2 * inv_m
 
 
-def pairwise_moments(x_std, c, *, backend: str = None):
+def pairwise_moments(x_std, c, *, backend: str = None, tune: str = "cache",
+                     plan=None):
     """Dispatching wrapper. x_std: (m, d) standardized, c: (d, d); or
     x_std (b, m, d) and c (b, d, d), giving (b, d, d) moments."""
     check_backend(backend)
@@ -104,7 +112,8 @@ def pairwise_moments(x_std, c, *, backend: str = None):
     _check_on_card(backend, x_std)
     # The kernel reads both row-major; cuBLAS may return X^T X
     # column-major (no copy when already contiguous).
-    return pairwise_stats.pairwise_moments(x_std.contiguous(), c.contiguous())
+    return pairwise_stats.pairwise_moments(x_std.contiguous(), c.contiguous(),
+                                           tune=tune, plan=plan)
 
 
 def _check_on_card(backend, x_std) -> None:
@@ -134,7 +143,8 @@ def _check_tile(d: int, row_start: int, tile: int) -> None:
 
 
 def pairwise_moment_sums_rows(x_std, c, row_start: int, tile: int, *,
-                              backend: str = None):
+                              backend: str = None, tune: str = "cache",
+                              plan=None):
     """Pairwise residual moment *sums* (S1, S2), each (tile, d) float32,
     for the rows ``[row_start, row_start + tile)`` against all columns.
 
@@ -148,11 +158,13 @@ def pairwise_moment_sums_rows(x_std, c, row_start: int, tile: int, *,
         return _each(lambda xk, ck: pairwise_moment_sums_blocked(
             xk, ck, row_start, tile), x_std, c)
     return pairwise_stats.pairwise_moment_sums_rows(
-        x_std.contiguous(), c.contiguous(), row_start, tile)
+        x_std.contiguous(), c.contiguous(), row_start, tile, tune=tune,
+        plan=plan)
 
 
 def pairwise_moment_sums_chunked(x_std, c, *, chunk: int = 512,
-                                 backend: str = None):
+                                 backend: str = None, tune: str = "cache",
+                                 plan=None):
     """Pairwise residual moment *sums* (S1, S2), each (d, d), accumulated
     over (chunk, d) sample slabs, the slab sums added in fixed order in
     float32.
@@ -174,16 +186,19 @@ def pairwise_moment_sums_chunked(x_std, c, *, chunk: int = 512,
         return pairwise_stats.sum_over_slabs(
             x_std, chunk,
             lambda xs: _each(pairwise_moment_sums_blocked, xs, c))
-    return pairwise_stats.pairwise_moment_sums_slabs(x_std, c, chunk)
+    return pairwise_stats.pairwise_moment_sums_slabs(x_std, c, chunk,
+                                                     tune=tune, plan=plan)
 
 
 def pairwise_moments_chunked(x_std, c, *, chunk: int = 512,
-                             backend: str = None):
+                             backend: str = None, tune: str = "cache",
+                             plan=None):
     """Chunk-accumulated pairwise moment *means*: the chunked sums times
     the float32 1/m, as the reference."""
     inv_m = float(np.float32(1.0 / x_std.shape[-2]))
     s1, s2 = pairwise_moment_sums_chunked(x_std, c, chunk=chunk,
-                                          backend=backend)
+                                          backend=backend, tune=tune,
+                                          plan=plan)
     return s1 * inv_m, s2 * inv_m
 
 

@@ -15,8 +15,10 @@ row tile ``[row0, row0 + rows)`` against all columns over a sample axis
 cut into slabs (:class:`SlabPlan`), each slab into the splits of
 ``split_plan(slab length)``; a second kernel adds each slab's splits in
 fixed order, then the slab sums in slab order, so results are
-bit-identical from run to run and at every tile shape. Three wrappers
-share the launcher:
+bit-identical from run to run and at every tile shape. A launch's pair-
+block edge T is its plan's: the ``plan`` a caller passes, else the one
+``tune.dispatch`` gives (:func:`tile_for` is the heuristic). Three
+wrappers share the launcher:
 
   * ``pairwise_moments`` -- the reference's ``pairwise_moments_pallas``
     (kernel B1): all d rows, one slab, divided by m in the reduce kernel;
@@ -155,10 +157,11 @@ def slab_plan(m: int, slab: int = None, n_split: int = None) -> SlabPlan:
 
 def tile_for(rows: int, d: int, n_z: int, sms: int = H100_SMS,
              fill: int = None) -> int:
-    """Pair-block edge T of the launch: the largest of ``TILES`` whose
-    pair blocks over all ``n_z`` splits (of every batch element: the
-    launcher passes b x n_z) give every SM at least ``fill``
-    (``FILL_THREADS_PER_SM``) threads. T does not change a pair's sums."""
+    """The heuristic pair-block edge T of a launch (the dispatcher's plan
+    when the tuning table has none): the largest of ``TILES`` whose pair
+    blocks over all ``n_z`` splits (of every batch element: b x n_z for
+    a batch) give every SM at least ``fill`` (``FILL_THREADS_PER_SM``)
+    threads. T does not change a pair's sums."""
     fill = FILL_THREADS_PER_SM if fill is None else fill
     for t in TILES[:-1]:
         blocks = math.ceil(rows / t) * math.ceil(d / t)
@@ -269,10 +272,13 @@ def _kernel_lib():
 MAX_BATCH = 65535  # the grid's y extent
 
 
-def _launch_sums(x_std, c, row0, rows, plan, scale):
-    """One launch of the partials kernel and one of the reduce kernel
-    over x_std (m, d) or a batch (b, m, d); sums of shape (rows, d) or
-    (b, rows, d)."""
+def _launch_sums(x_std, c, row0, rows, slabs, scale, tile):
+    """One launch of the partials kernel, with pair blocks of edge
+    ``tile``, and one of the reduce kernel over x_std (m, d) or a batch
+    (b, m, d) cut by the :class:`SlabPlan` ``slabs``; sums of shape
+    (rows, d) or (b, rows, d)."""
+    if tile not in TILES:
+        raise ValueError(f"pair-block edge {tile} not in {TILES}")
     if x_std.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(
             f"the CUDA kernel takes float32, got {x_std.dtype} and {c.dtype}"
@@ -286,33 +292,44 @@ def _launch_sums(x_std, c, row0, rows, plan, scale):
     d = x_std.shape[-1]
     lib = _kernel_lib()
     with torch.cuda.device(x_std.device):
-        sms = torch.cuda.get_device_properties(
-            x_std.device).multi_processor_count
         stream = torch.cuda.current_stream().cuda_stream
-        part1 = torch.empty((b, plan.n_z, rows, d), device=x_std.device)
+        part1 = torch.empty((b, slabs.n_z, rows, d), device=x_std.device)
         part2 = torch.empty_like(part1)
         out1 = torch.empty((*lead, rows, d), device=x_std.device)
         out2 = torch.empty_like(out1)
         err = lib.pairwise_moment_partials(
             x_std.data_ptr(), c.data_ptr(), part1.data_ptr(),
-            part2.data_ptr(), d, row0, rows, plan.slab, plan.n_full,
-            plan.full_splits, plan.full_per, plan.tail, plan.tail_splits,
-            plan.tail_per, tile_for(rows, d, b * plan.n_z, sms),
-            stage_for(d), b, stream,
+            part2.data_ptr(), d, row0, rows, slabs.slab, slabs.n_full,
+            slabs.full_splits, slabs.full_per, slabs.tail, slabs.tail_splits,
+            slabs.tail_per, tile, stage_for(d), b, stream,
         )
         if err:
             raise RuntimeError(f"pairwise_moment_partials: CUDA error {err}")
         err = lib.pairwise_moment_reduce(
             part1.data_ptr(), part2.data_ptr(), out1.data_ptr(),
-            out2.data_ptr(), rows * d, plan.n_full, plan.full_splits,
-            plan.tail_splits, scale, b, stream,
+            out2.data_ptr(), rows * d, slabs.n_full, slabs.full_splits,
+            slabs.tail_splits, scale, b, stream,
         )
         if err:
             raise RuntimeError(f"pairwise_moment_reduce: CUDA error {err}")
     return out1, out2
 
 
-def pairwise_moments(x_std, c, *, n_split=None):
+def _plan_tile(op, shape, x_std, tune, plan, chunk=None) -> int:
+    """The pair-block edge of a launch: ``plan``'s, or else the one
+    ``tune.dispatch`` gives for this shape, batch and card in mode
+    ``tune``."""
+    if plan is None:
+        from .tune import registry
+
+        plan = registry.dispatch(
+            op, shape, mode=tune, chunk=chunk,
+            batch=x_std.shape[0] if x_std.dim() == 3 else 1,
+            device=x_std.device)
+    return plan.tile
+
+
+def pairwise_moments(x_std, c, *, n_split=None, tune="cache", plan=None):
     """Pairwise residual moments (M1, M2), each (d, d) float32 means.
 
     Args:
@@ -320,6 +337,8 @@ def pairwise_moments(x_std, c, *, n_split=None):
              (b, m, d), giving (b, d, d) moments in one launch.
       c:     (d, d) sample correlation of ``x_std`` (full fp32), or
              (b, d, d).
+      tune, plan: the launch plan (its pair-block edge): ``plan`` if
+             given, else the dispatcher's in mode ``tune``.
     On a CUDA tensor this launches the kernel (float32, contiguous, or it
     raises); on a CPU tensor it runs the plain version.
     """
@@ -328,8 +347,9 @@ def pairwise_moments(x_std, c, *, n_split=None):
     _check(x_std, c, 0, d)
     inv_m = float(np.float32(1.0 / m))  # the reference's f32 1/m
     if x_std.is_cuda:
+        tile = _plan_tile("pairwise_moments", (m, d), x_std, tune, plan)
         out = _launch_sums(x_std, c, 0, d, slab_plan(m, n_split=n_split),
-                           inv_m)
+                           inv_m, tile)
         launches += 1
         return out
     if x_std.device.type != "cpu":
@@ -338,7 +358,8 @@ def pairwise_moments(x_std, c, *, n_split=None):
     return s1 * inv_m, s2 * inv_m
 
 
-def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None):
+def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None,
+                              tune="cache", plan=None):
     """Pairwise residual moment *sums* (S1, S2), each (rows, d) float32,
     for the row tile ``[row0, row0 + rows)`` against all d columns.
 
@@ -349,14 +370,18 @@ def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None):
       c:     (d, d) correlation of the data ``x_std`` was standardized by,
              or (b, d, d).
       row0, rows: the tile, host ints; a tile outside [0, d) raises.
+      tune, plan: the launch plan, as :func:`pairwise_moments`.
     On a CUDA tensor this launches the kernel (float32, contiguous, or it
     raises); on a CPU tensor it runs the plain version.
     """
     global rows_launches
     _check(x_std, c, row0, rows)
     if x_std.is_cuda:
+        m, d = x_std.shape[-2:]
+        tile = _plan_tile("pairwise_moment_sums_rows", (rows, d, m), x_std,
+                          tune, plan)
         out = _launch_sums(x_std, c, row0, rows,
-                           slab_plan(x_std.shape[-2], n_split=n_split), 1.0)
+                           slab_plan(m, n_split=n_split), 1.0, tile)
         rows_launches += 1
         return out
     if x_std.device.type != "cpu":
@@ -365,7 +390,8 @@ def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None):
                                       n_split=n_split)
 
 
-def pairwise_moment_sums_slabs(x_std, c, slab, *, row0=0, rows=None):
+def pairwise_moment_sums_slabs(x_std, c, slab, *, row0=0, rows=None,
+                               tune="cache", plan=None):
     """Pairwise residual moment *sums* (S1, S2), each (rows, d) float32,
     of the row tile ``[row0, row0 + rows)``, over (slab, d) sample slabs
     of ``x_std`` (the last one ragged): the slab sums of
@@ -375,20 +401,23 @@ def pairwise_moment_sums_slabs(x_std, c, slab, *, row0=0, rows=None):
     contiguous, or it raises) over every slab's splits, of every element
     of a leading batch axis if there is one, equal bit for bit to the
     per-slab launches added in order; on a CPU tensor it runs the plain
-    version slab by slab.
+    version slab by slab. ``tune`` and ``plan`` give the launch plan, as
+    :func:`pairwise_moments`.
     """
     global rows_launches
     m, d = x_std.shape[-2:]
     rows = d - row0 if rows is None else rows
     _check(x_std, c, row0, rows)
-    plan = slab_plan(m, slab)
+    slabs = slab_plan(m, slab)
     if x_std.is_cuda:
-        out = _launch_sums(x_std, c, row0, rows, plan, 1.0)
+        tile = _plan_tile("pairwise_moment_sums_chunked", (m, d), x_std,
+                          tune, plan, chunk=slabs.slab)
+        out = _launch_sums(x_std, c, row0, rows, slabs, 1.0, tile)
         rows_launches += 1
         return out
     if x_std.device.type != "cpu":
         raise ValueError(f"no pairwise-moment kernel for {x_std.device}")
-    return sum_over_slabs(x_std, plan.slab, lambda xs: (
+    return sum_over_slabs(x_std, slabs.slab, lambda xs: (
         pairwise_moment_sums_plain(xs, c, row0=row0, rows=rows)))
 
 

@@ -15,14 +15,16 @@ Three paths, each a list of (width, launches) cells:
     256-row slabs at the staged widths of 487 (the rolling refit).
 
 For every cell it times each instance of ``pairwise_stats.TILES`` (the
-launcher's ``tile_for`` forced to it), checks that all instances give
-the same bits, and prints one JSON line per cell. Then, for each path, it
+autotuner's candidate plans, ``tune.autotune.candidate_plans``, passed to
+the wrapper as its explicit plan), checks that all instances give the
+same bits, and prints one JSON line per cell. Then, for each path, it
 prints the time of the path under ``tile_for`` with each candidate
 ``FILL_THREADS_PER_SM`` and under each single instance, and last the
 candidate with the least time over all paths: the launcher's threshold
-is read off these times. Each time is the device time of
-``REPS`` back-to-back calls queued behind a device sleep, divided by
-``REPS``: the kernels' time without the host's launch gaps.
+is read off these times. Each time is the autotuner's measurement
+(``tune.autotune.measure_plan``): the device time of ``REPS``
+back-to-back calls queued behind a device sleep, divided by ``REPS``, the
+kernels' time without the host's launch gaps.
 """
 
 from __future__ import annotations
@@ -36,42 +38,19 @@ import torch
 from ..core.ordering import _stage_schedule
 from . import ops, pairwise_stats
 from .pairwise_stats import tile_for
+from .tune.autotune import candidate_plans, measure_candidates
 
 REPS = 50
 FILLS = (0, 64, 128, 256, 512, 1024, 2048, 4096)
 
 
-def _device_ms(fn, reps=REPS):
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)  # hold the queue while the host enqueues
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
-def _sweep_cell(call, width):
-    """{tile: ms} of ``call`` at every instance, which must agree in bits."""
-    times, ref = {}, None
-    try:
-        for tile in pairwise_stats.TILES:
-            pairwise_stats.tile_for = lambda *a, _t=tile, **k: _t
-            out = call()
-            torch.cuda.synchronize()
-            if ref is None:
-                ref = out
-            elif not all(torch.equal(a, b) for a, b in zip(out, ref)):
-                raise SystemExit(f"tile {tile} changes the sums at width "
-                                 f"{width}")
-            times[tile] = _device_ms(call)
-    finally:
-        pairwise_stats.tile_for = tile_for
-    return times
+def _sweep_cell(call, op, shape, chunk=None):
+    """{tile: ms} of ``call(plan)`` at every candidate plan of ``op`` at
+    ``shape``, whose sums must agree in bits (the autotuner's check)."""
+    ms = measure_candidates(call, candidate_plans(op, shape, chunk=chunk),
+                            repeats=REPS)
+    return {m.plan.tile: m.seconds * 1e3
+            for m in sorted(ms, key=lambda m: -m.plan.tile)}
 
 
 def main() -> int:
@@ -99,13 +78,16 @@ def main() -> int:
         cs = c1[:width, :width].contiguous()
         n_z = pairwise_stats.slab_plan(xs.shape[0]).n_z
         cells.append((width, steps, n_z, _sweep_cell(
-            lambda xs=xs, cs=cs: ops.pairwise_moments(xs, cs), width)))
+            lambda plan, xs=xs, cs=cs: ops.pairwise_moments(xs, cs,
+                                                            plan=plan),
+            "pairwise_moments", tuple(xs.shape))))
     paths["lingam-1m-100 staged"] = cells
     del x1, c1
     xv, cv = standardized(3999, 487)
     n_z = pairwise_stats.slab_plan(3999).n_z
     paths["varlingam-stocks-487"] = [(487, 487, n_z, _sweep_cell(
-        lambda: ops.pairwise_moments(xv, cv), 487))]
+        lambda plan: ops.pairwise_moments(xv, cv, plan=plan),
+        "pairwise_moments", tuple(xv.shape)))]
     xw, cw = standardized(2048, 487)
     cells = []
     for width, steps in _stage_schedule(487):
@@ -113,8 +95,9 @@ def main() -> int:
         cs = cw[:width, :width].contiguous()
         n_z = pairwise_stats.slab_plan(2048, 256).n_z
         cells.append((width, steps, n_z, _sweep_cell(
-            lambda xs=xs, cs=cs: ops.pairwise_moment_sums_chunked(
-                xs, cs, chunk=256), width)))
+            lambda plan, xs=xs, cs=cs: ops.pairwise_moment_sums_chunked(
+                xs, cs, chunk=256, plan=plan),
+            "pairwise_moment_sums_chunked", tuple(xs.shape), chunk=256)))
     paths["stream refit"] = cells
 
     over_paths = dict.fromkeys(FILLS, 0.0)

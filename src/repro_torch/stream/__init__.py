@@ -8,12 +8,22 @@ sessions.
     absorbing/retracting chunks instead of rescanning.
   * :mod:`repro_torch.stream.session` -- :class:`StreamSession` /
     :class:`GraphDelta`: one client's rolling state and graph deltas.
+  * :mod:`repro_torch.stream.monitor` -- :class:`GraphHealthMonitor`:
+    CUSUM drift detection on the served graph's structural noise, from
+    each chunk's moment summary.
 """
 
+from .monitor import (  # noqa: F401
+    DriftAlert,
+    GraphHealthMonitor,
+    MonitorConfig,
+    score_chunks_many,
+)
 from .session import (  # noqa: F401
     GraphDelta,
     StreamConfig,
     StreamSession,
+    bucket_key,
     graph_delta,
 )
 from .stats import MomentState  # noqa: F401

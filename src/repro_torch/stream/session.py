@@ -6,27 +6,33 @@ when a refit is *due* (window full and ``refit_every`` chunks absorbed
 since the last estimate), and each completed refit is summarized as a
 :class:`GraphDelta` against the session's previous adjacency.
 
-``StreamSession.refit_now`` runs a refit directly; a serving engine
-(not yet in the port) collects the due sessions and runs their refits.
-Drift monitoring is not ported yet either: ``StreamConfig.monitor`` must
-be None. With ``coast_max`` > 0 the refit cadence still adapts, by the
-unmonitored rule: after a refit whose adjacency moved by at most
-``delta_threshold``, the interval doubles up to ``coast_max`` chunks.
-Alerts filed through :meth:`StreamSession.absorb_alerts` make a session
-due at once and reset the cadence.
+Sessions do not execute refits themselves in serving: the engine
+(:class:`repro_torch.serve.engine.CausalDiscoveryEngine`) collects due
+sessions, groups their :class:`~repro_torch.stream.window.RefitPlan`\\ s
+by (shape, fit-config) bucket, and runs each bucket through the batched
+``fit_many_from_stats``. ``StreamSession.refit_now`` keeps a direct
+single-session path.
+
+With a :class:`~repro_torch.stream.monitor.MonitorConfig` attached, every
+posted chunk's moment summary is also scored against the currently
+served graph (:mod:`repro_torch.stream.monitor`: no row re-reads), and
+the refit cadence becomes *adaptive*: a :class:`DriftAlert` makes the
+session due immediately, while alert-free refits whose graph barely
+moved let the cadence coast (doubling up to ``coast_max``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core import api
 from repro_torch.obs.ring import BoundedRing
 
+from . import monitor as monitor_lib
 from . import window as window_lib
 
 
@@ -40,9 +46,14 @@ class StreamConfig:
     edge add/remove sets. ``reanchor_every`` (slides) caps moment-
     retraction drift on non-stationary streams (0 = never).
 
-    ``monitor`` must be None: the drift monitor is not ported yet
-    (ROADMAP queue A, item 10). ``coast_max`` enables the adaptive
-    cadence described in the module docstring (0 = fixed cadence).
+    ``monitor`` attaches a graph-health monitor to the session (None =
+    no drift detection, fixed cadence). ``coast_max`` enables adaptive
+    cadence: after an alert-free refit whose graph was judged stable, the
+    refit interval doubles, up to ``coast_max`` chunks; any drift alert
+    resets it to ``refit_every`` and makes the session due at once (0 =
+    fixed cadence even when monitored). Stability is the monitor's drift
+    level below 0.5 when there is a monitor, else an adjacency that moved
+    by at most ``delta_threshold``.
     """
 
     d: int
@@ -53,15 +64,8 @@ class StreamConfig:
     delta_threshold: float = 0.05
     reanchor_every: int = 0
     fit: api.FitConfig = api.FitConfig(compaction="staged")
-    monitor: Optional[Any] = None
+    monitor: Optional[monitor_lib.MonitorConfig] = None
     coast_max: int = 0
-
-    def __post_init__(self):
-        if self.monitor is not None:
-            raise NotImplementedError(
-                "the drift monitor is not ported yet (ROADMAP queue A, item "
-                "10): StreamConfig.monitor must be None"
-            )
 
 
 @dataclasses.dataclass
@@ -74,8 +78,10 @@ class GraphDelta:
     removed: np.ndarray         # (r, 2) int edges newly below
     max_abs_change: float       # max |B0_new - B0_prev| (0.0 on first)
     frob_change: float          # ||B0_new - B0_prev||_F (0.0 on first)
+    drift_score: float = 0.0    # monitor level at refit time (1.0 = alarm)
     triggered_by: str = "cadence"   # "cadence" | "alert"
-    alerts: List[Any] = dataclasses.field(default_factory=list)
+    alerts: List[monitor_lib.DriftAlert] = dataclasses.field(
+        default_factory=list)    # the alerts that forced this refit
 
     def summary(self) -> str:
         base = (
@@ -84,8 +90,12 @@ class GraphDelta:
             f"max|dB|={self.max_abs_change:.4f} "
             f"frob(dB)={self.frob_change:.4f}"
         )
-        if self.triggered_by == "alert":
-            base += f" by=alert[{len(self.alerts)}]"
+        if self.triggered_by == "alert" or self.drift_score > 0.0:
+            kinds = ",".join(sorted({a.kind for a in self.alerts})) or "-"
+            base += (
+                f" drift={self.drift_score:.2f} by={self.triggered_by}"
+                f"[{kinds}]"
+            )
         return base
 
 
@@ -151,18 +161,39 @@ class StreamSession:
         # Adaptive cadence: current refit interval in chunks. Fixed at
         # refit_every unless coast_max > 0 (see apply_fit).
         self._cadence = config.refit_every
+        mc = config.monitor
+        self.monitor: Optional[monitor_lib.GraphHealthMonitor] = (
+            monitor_lib.GraphHealthMonitor(mc, config.d, config.lags,
+                                           sid=sid)
+            if mc is not None else None
+        )
         # pending: alerts not yet answered by a refit (drives `due`);
-        # unread: alerts not yet collected by a reader; history: all.
-        self.pending_alerts: BoundedRing = BoundedRing(1)
-        self.unread_alerts: BoundedRing = BoundedRing(1)
-        self.alert_history: BoundedRing = BoundedRing(1)
+        # unread: alerts not yet collected through the engine's
+        # poll_alerts; history: everything, for review.
+        cap = mc.max_pending if mc else 1
+        hist = mc.history if mc else 1
+        self.pending_alerts: BoundedRing = BoundedRing(cap)
+        self.unread_alerts: BoundedRing = BoundedRing(cap)
+        self.alert_history: BoundedRing = BoundedRing(hist)
 
     def post(self, rows) -> bool:
-        """Absorb one chunk; returns True when a refit is now due."""
-        self.rolling.push(rows)
+        """Absorb one chunk; returns True when a refit is now due.
+
+        When a monitor is armed, the chunk's moment summary (the one the
+        window's slide computed: monitoring adds no data pass) is scored
+        against the served graph; fired alerts land in the session's
+        alert rings and make it due.
+        """
+        chunk_state = self.rolling.push(rows)
         self.n_chunks += 1
         if self.rolling.ready:
             self._chunks_since_refit += 1
+        if self.monitor is not None and self.monitor.armed:
+            self.absorb_alerts(self.monitor.update(
+                chunk_state,
+                chunk_index=self.n_chunks,
+                refit_index=self.n_refits,
+            ))
         if self.due and self._due_since is None:
             self._due_since = time.monotonic()
         return self.due
@@ -199,17 +230,22 @@ class StreamSession:
         """Record a completed refit; returns the delta against the
         previous estimate (thresholded at ``config.delta_threshold``).
 
-        Closes out pending alerts (they travel on the delta) and advances
-        the adaptive cadence: alert-free refits whose adjacency moved by
-        at most ``delta_threshold`` double the interval (up to
-        ``coast_max``); anything else resets it.
+        Closes out pending alerts (they triggered this refit and travel
+        on the delta), re-arms the monitor on the fresh estimate, and
+        advances the adaptive cadence: stable alert-free refits double the
+        interval (up to ``coast_max``); anything else resets it.
         """
         triggered = list(self.pending_alerts.drain())
+        drift_score = (
+            self.monitor.max_score()
+            if self.monitor is not None and self.monitor.armed else 0.0
+        )
         b0 = fit.result.adjacency.cpu().numpy()
         delta = graph_delta(
             self._prev_adjacency, b0, self.config.delta_threshold,
             self.n_refits,
         )
+        delta.drift_score = drift_score
         delta.triggered_by = "alert" if triggered else "cadence"
         delta.alerts = triggered
         self._prev_adjacency = b0
@@ -218,9 +254,16 @@ class StreamSession:
         self.n_refits += 1
         self._chunks_since_refit = 0
         self._due_since = None
+        if self.monitor is not None:
+            self.monitor.arm(fit)
         if self.config.coast_max > 0:
-            stable = (not triggered and delta.max_abs_change
-                      <= self.config.delta_threshold)
+            # The monitor's drift level is calibrated to the served model,
+            # while raw adjacency deltas fluctuate with estimation noise;
+            # unmonitored sessions fall back to the delta.
+            stable = not triggered and (
+                drift_score < 0.5 if self.monitor is not None
+                else delta.max_abs_change <= self.config.delta_threshold
+            )
             self._cadence = (
                 min(self._cadence * 2, self.config.coast_max) if stable
                 else self.config.refit_every

@@ -43,6 +43,31 @@ from . import stats
 _RIDGE = 1e-6
 
 
+def _tuned_moment_chunk(d: int, chunk: int, window_chunks: int,
+                        config: api.FitConfig, device) -> int:
+    """Default ordering-moment slab of a rolling window: the stream chunk.
+
+    The reference asks its dispatcher for a tuned sample block bounded
+    by the stream chunk. The port's plans carry no sample block: the slab
+    is the session's memory bound and each slab's split plan depends on
+    its length alone (what keeps a pair's sums equal at every buffer
+    width), so it is not tuned. The dispatch still resolves the window's
+    launch plan here, ahead of the first refit: with ``tune="auto"`` a
+    missing bucket is measured now, not inside a refit.
+    """
+    from repro_torch.kernels import tune as ktune
+
+    ktune.dispatch(
+        "pairwise_moment_sums_chunked",
+        (chunk * window_chunks, d),
+        backend=config.backend,
+        mode=config.tune,
+        chunk=chunk,
+        device=device,
+    )
+    return chunk
+
+
 def lagged_rows(buf: np.ndarray, lags: int) -> np.ndarray:
     """Lag-augmented rows of a contiguous (n, d) block.
 
@@ -189,8 +214,9 @@ class RollingVarLiNGAM:
       config:        the DirectLiNGAM :class:`~repro_torch.core.api.
                      FitConfig` for the residual fit; ``moment_chunk``
                      defaults to the stream chunk (the session's memory
-                     bound), so the ordering moments accumulate over
-                     chunk-sized sample slabs.
+                     bound; see :func:`_tuned_moment_chunk`), so the
+                     ordering moments accumulate over chunk-sized sample
+                     slabs.
       reanchor_every: if > 0, rebuild the moment state from the live
                      ring every that-many slides (after the window fills)
                      to cap retraction drift on non-stationary streams.
@@ -220,7 +246,9 @@ class RollingVarLiNGAM:
         self.lags = lags
         self.reanchor_every = reanchor_every
         if config.moment_chunk is None:
-            config = dataclasses.replace(config, moment_chunk=chunk)
+            config = dataclasses.replace(
+                config, moment_chunk=_tuned_moment_chunk(
+                    d, chunk, window_chunks, config, self.device))
         self.config = config
         self.ring = ChunkRing(window_chunks)
         self.aug_state = stats.init((lags + 1) * d, device=self.device)

@@ -10,20 +10,29 @@ Skips without a card. Tolerances: off-diagonal moments within atol 2e-6
 (B3), the reference's own kernel tolerances; repeat launches
 bit-identical, and bit-identical across buffer widths, tile shapes, the
 slab-structured launch against per-slab launches, and a batched launch
-against the launches on each element. The bootstrap's two strategies on
-the card: equal edge probabilities, coefficients within 1e-5. Total
-effects and impulse responses on the card against float64 numpy, within
-1e-5.
+against the launches on each element. Every pair-block candidate of the
+dispatcher's search gives the heuristic plan's sums bit for bit. The
+bootstrap's two strategies on the card: equal edge probabilities,
+coefficients within 1e-5. Total effects and impulse responses on the card
+against float64 numpy, within 1e-5. A small serving round trip on the
+card: batched fits with the single fits' orders and adjacency within
+1e-5, one B2 launch per ordering step of a batched flush, the injected
+drift alert delivered once, and effect answers within 1e-5 of the direct
+call.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import api, bootstrap
-from repro_torch.data.simulate import simulate_lingam
-from repro_torch.infer import effects
+from repro_torch.data.simulate import (simulate_lingam, simulate_var_breaks,
+                                       simulate_var_stocks)
+from repro_torch.infer import effects, query
 from repro_torch.kernels import fused_stats, ops, pairwise_stats
+from repro_torch.kernels.tune import autotune, cache, registry
 
 SHAPES = [(64, 4), (100, 5), (257, 10), (511, 16), (1000, 33), (2048, 64),
           (4096, 130), (777, 40)]
@@ -299,3 +308,128 @@ def test_cuda_effects_and_impulse_responses_match_float64(cuda_device):
     t = effects.total_effects_impl(torch.from_numpy(b0).to(cuda_device),
                                    torch.from_numpy(perm).to(cuda_device))
     np.testing.assert_allclose(t.cpu().numpy(), a0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,b,m,d,chunk", [
+    ("pairwise_moments", 1, 4000, 487, None),
+    ("pairwise_moments", 1, 3999, 487, None),
+    ("pairwise_moments", 4, 4000, 487, None),
+    ("pairwise_moments", 1, 20_000, 24, None),
+    ("pairwise_moment_sums_chunked", 1, 2048, 487, 256),
+    ("pairwise_moment_sums_chunked", 8, 2048, 487, 256),
+    ("pairwise_moment_sums_rows", 1, 2000, 40, None),
+])
+def test_cuda_every_tile_candidate_is_bit_equal(cuda_device, op, b, m, d,
+                                                chunk):
+    """The autotuner's candidates (every pair-block edge) give the
+    heuristic plan's sums bit for bit, in one launch each."""
+    if b == 1:
+        x = ops.standardize(torch.tensor(
+            np.random.default_rng(m + d).laplace(size=(m, d)),
+            dtype=torch.float32, device=cuda_device))
+        c = ops.correlation(x).contiguous()
+    else:
+        x, c = _standardized_batch(b, m, d, cuda_device)
+    shape = (d - 3, d, m) if op == "pairwise_moment_sums_rows" else (m, d)
+    run = {
+        "pairwise_moments": lambda p: ops.pairwise_moments(x, c, plan=p),
+        "pairwise_moment_sums_chunked": lambda p: (
+            ops.pairwise_moment_sums_chunked(x, c, chunk=chunk, plan=p)),
+        "pairwise_moment_sums_rows": lambda p: (
+            ops.pairwise_moment_sums_rows(x, c, 0, d - 3, plan=p)),
+    }[op]
+    cands = autotune.candidate_plans(op, shape, chunk=chunk, batch=b)
+    assert sorted(p.tile for p in cands) == sorted(pairwise_stats.TILES)
+    want = run(cands[0])
+    for p in cands[1:]:
+        before = pairwise_stats.launches + pairwise_stats.rows_launches
+        got = run(p)
+        torch.cuda.synchronize()
+        assert pairwise_stats.launches + pairwise_stats.rows_launches == (
+            before + 1)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), p
+
+
+@pytest.mark.gpu
+def test_cuda_dispatch_keys_the_card_and_records_a_search(cuda_device,
+                                                          tmp_path):
+    name = torch.cuda.get_device_name(cuda_device)
+    assert registry.device_kind(cuda_device) == name
+    table = cache.TuneTable(default_path=os.devnull,
+                            overlay_path_=str(tmp_path / "t.json"))
+    miss = registry.dispatch("pairwise_moments", (4000, 487), table=table)
+    assert miss == registry.dispatch_heuristic("pairwise_moments",
+                                               (4000, 487))
+    tuned = autotune.autotune_op("pairwise_moments", (4000, 487),
+                                 table=table, repeats=2)
+    assert tuned.key.split("/")[1] == "-".join(name.lower().split())
+    assert all(m.seconds > 0 for m in tuned.measurements)
+    hit = registry.dispatch("pairwise_moments", (4000, 487), table=table)
+    assert hit == tuned.best and hit.tile in pairwise_stats.TILES
+
+
+@pytest.mark.gpu
+def test_cuda_bootstrap_auto_models_the_ports_memory(cuda_device):
+    """On the card "auto" compares the port's own peak model with the
+    free memory: a budget below the model sends it to the loop."""
+    gt = simulate_lingam(m=300, d=5, seed=2)
+    need = bootstrap.vmap_peak_bytes(3, 300, 5)
+    kw = dict(n_sampling=3, threshold=0.1, seed=0)
+    before = pairwise_stats.launches
+    bootstrap.bootstrap_lingam(gt.data, max_vmap_bytes=need, **kw)
+    assert pairwise_stats.launches == before + 5  # vmap: one per step
+    bootstrap.bootstrap_lingam(gt.data, max_vmap_bytes=need - 1, **kw)
+    assert pairwise_stats.launches == before + 5 + 3 * 5  # the loop
+    bootstrap.bootstrap_lingam(gt.data, **kw)  # the card's free memory
+    assert pairwise_stats.launches == before + 5 + 15 + 5
+
+
+@pytest.mark.gpu
+def test_cuda_engine_round_trip(cuda_device):
+    from repro_torch.serve.engine import CausalDiscoveryEngine, FitRequest
+    from repro_torch.stream import MonitorConfig, StreamConfig
+
+    eng = CausalDiscoveryEngine(api.FitConfig(compaction="staged"),
+                                batch_size=4)
+    reqs = [FitRequest(data=simulate_lingam(m=2000, d=7, seed=s).data)
+            for s in range(3)]
+    before = pairwise_stats.launches
+    eng.run(reqs)
+    assert pairwise_stats.launches == before + 7  # one batched fit
+    for r in reqs:
+        one = api.fit_fn(torch.as_tensor(np.ascontiguousarray(r.data),
+                                         device=cuda_device),
+                         api.FitConfig(compaction="staged"))
+        np.testing.assert_array_equal(one.order.cpu().numpy(),
+                                      r.result.order)
+        np.testing.assert_allclose(one.adjacency.cpu().numpy(),
+                                   r.result.adjacency, atol=1e-5)
+    d, chunk, wc = 12, 100, 8
+    br = simulate_var_breaks(m=1400, d=d, kind="noise_scale", seed=0,
+                             at=1000)
+    peer = simulate_var_stocks(m=1400, d=d, seed=9)[0]
+    cfg = StreamConfig(d=d, chunk=chunk, window_chunks=wc,
+                       monitor=MonitorConfig())
+    sids = [eng.open_stream(cfg) for _ in range(2)]
+    flushes = []
+    for k in range(14):
+        for sid, x in zip(sids, (br.series, peer)):
+            b2 = pairwise_stats.rows_launches
+            out = eng.post_chunk(sid, x[k * chunk:(k + 1) * chunk])
+            if out:
+                flushes.append((len(out), pairwise_stats.rows_launches - b2))
+    # One B2 launch per ordering step for each batched refit: a flush
+    # whose windows differ in length (one has slid, one has not) holds two.
+    assert flushes and all(n % d == 0 for _, n in flushes)
+    assert (2, d) in flushes
+    alerts = eng.poll_alerts()
+    assert br.variable in {a.variable for a in alerts
+                           if a.sid == sids[0]}
+    assert eng.poll_alerts() == []
+    qs = eng.query([query.EffectQuery(graph=sids[1]),
+                    query.EffectQuery(graph=reqs[0].result)])
+    np.testing.assert_allclose(qs[0].effects, effects.total_effects(
+        eng.stream_session(sids[1]).last_fit.result).cpu().numpy(),
+        atol=1e-5)
+    assert qs[1].graph.device.type == "cuda"

@@ -26,13 +26,13 @@ import torch
 from repro.core import api as japi
 from repro.data.simulate import simulate_var_stocks
 from repro.obs.ring import BoundedRing as JBoundedRing
-from repro.stream import MonitorConfig
 from repro.stream import session as jsession
 from repro.stream import stats as jstats
 from repro.stream import window as jwindow
 from repro_torch.core import api
 from repro_torch.obs.ring import BoundedRing
-from repro_torch.stream import StreamConfig, StreamSession, stats, window
+from repro_torch.stream import (MonitorConfig, StreamConfig, StreamSession,
+                                stats, window)
 from repro_torch.stream.session import graph_delta
 
 torch.set_num_threads(1)
@@ -432,9 +432,17 @@ def test_session_alert_makes_due_and_resets_cadence():
 
 
 def test_session_rejects_a_monitor():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        StreamConfig(d=D, chunk=CHUNK, window_chunks=WC,
-                     monitor=MonitorConfig())
+    """The session no longer rejects a monitor: ``StreamConfig(monitor=
+    ...)`` builds the port's drift monitor, which arms on the first fit
+    (the monitor's own checks are in tests/test_torch_monitor.py)."""
+    session = StreamSession("s", StreamConfig(
+        d=D, chunk=CHUNK, window_chunks=WC, fit=CFG,
+        monitor=MonitorConfig()), device="cpu")
+    assert session.monitor is not None and not session.monitor.armed
+    for rows in _stock_chunks(WC, seed=13):
+        session.post(rows)
+    delta = session.refit_now()
+    assert session.monitor.armed and delta.drift_score == 0.0
 
 
 def test_bounded_ring_copy_behaves_as_reference():
