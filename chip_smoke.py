@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Imports only ``repro_torch`` (from ``src/``), ``torch`` and numpy. Phases,
-any failure of which exits non-zero:
+Imports only ``repro_torch`` (from ``src/``), the port's benchmarks
+(``benchmarks/torch_*.py``), ``torch``, numpy and scipy. Phases, any
+failure of which exits non-zero:
 
   1. device: the card's name and power limit, the TF32 flag; build the
      CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
@@ -85,8 +86,22 @@ any failure of which exits non-zero:
      the RCA scores and contributions, batched and direct, against float64
      within their componentwise bounds;
  11. one JSON line listing every ported kernel with its launches on its
-     path, error, times, bound and ptxas registers and spills;
- 12. last line: {"ok": true, "device": {...}}.
+     path, error, times, bound and ptxas registers and spills (printed
+     after phase 12, whose B1 launches and gene-shape time it carries);
+ 12. the paper's experiments through the port's benchmarks, on the card:
+     (a) the speed-up, the sequential numpy pair loop on the host against
+     the kernel ordering (medians of 3) on the quick grid and (10,000,
+     64), orders equal or parting only at a tie, one B1 launch per step;
+     (b) paper Fig. 3, 10 simulations of (3000, 8): order match against
+     the sequential loop, F1 >= 0.9 on average; (c) NOTEARS, GOLEM and
+     ICA-LiNGAM at (2000, 10), each one's working operations seen on the
+     card by a torch function mode, F1/SHD printed, ICA-LiNGAM held to
+     F1 > 0.7; (d) the gene study at m = 50,000, d = 961 (Table 1): fit
+     seconds, B1 launches, I-NLL/I-MAE finite, peak memory, and B1 at the
+     fit's first step timed against its bound, a 64-row tile against
+     float64; (e) VarLiNGAM on the 487-stock panel (Fig. 4): seconds,
+     b0 precision and recall;
+ 13. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -148,6 +163,9 @@ ATOL_QUERY = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
 SFU_OPS_PER_CLOCK_PER_SM = 16
 SFU_OPS_PER_TERM = 3  # ex2 (exp(-2|u|)), lg2 (log1p), ex2 (exp(-u^2/2))
+# Phase 12's speed-up grid: the reference's quick grid and this shape of
+# its full grid.
+SPEEDUP_WIDE = (10_000, 64)
 
 
 def fail(msg: str):
@@ -240,37 +258,6 @@ def moment_bound_ms(rows, d, m, n_bytes, sms, clock_mhz):
     return max(ops_ms, bytes_ms), ops_ms, bytes_ms
 
 
-def score_tolerance(cm1, cm2, m1, m2, active, atol, col_atol=0.0):
-    """Per-variable bound on how far a k_list score can move when every
-    pairwise moment moves by at most ``atol`` and every column moment by
-    at most ``col_atol`` (0: the column moments are shared).
-    H = H0 - K1 (m1 - g)^2 - K2 m2^2 moves by at most
-    2 K1 |m1 - g| a + K1 a^2 + 2 K2 |m2| a + K2 a^2; a pair's MI
-    difference by the sum of its four entropies' moves; and a score term
-    min(0, diff)^2 by 2 |min(0, diff)| e + e^2."""
-    import torch
-
-    from repro_torch.core import measures
-
-    def entropy_move(g1, g2, a):
-        return (2 * measures.K1 * (g1 - measures.GAMMA).abs() * a
-                + measures.K1 * a**2 + 2 * measures.K2 * g2.abs() * a
-                + measures.K2 * a**2)
-
-    m1, m2 = m1.double(), m2.double()
-    cm1, cm2 = cm1.double(), cm2.double()
-    dh = entropy_move(m1, m2, atol)
-    dc = entropy_move(cm1, cm2, col_atol)
-    h_col = measures.entropy_from_moments(cm1, cm2)
-    h_res = measures.entropy_from_moments(m1, m2)
-    diff = (h_col[None, :] + h_res) - (h_col[:, None] + h_res.T)
-    e = dh + dh.T + dc[None, :] + dc[:, None]
-    eye = torch.eye(len(active), dtype=torch.bool, device=active.device)
-    pair_ok = active[:, None] & active[None, :] & ~eye
-    term = 2 * torch.clamp(diff, max=0.0).abs() * e + e * e
-    return torch.where(pair_ok, term, 0.0).sum(dim=1)
-
-
 def walk_against_plain(x, kernel, plain, atol, x_plain=None):
     """Replay the kernel fit's masked scan on ``x``. At every step the
     plain backend's moments must agree with the kernel's within ``atol``
@@ -288,6 +275,7 @@ def walk_against_plain(x, kernel, plain, atol, x_plain=None):
     largest ratio of a tied step's score gap to its tolerance)."""
     import torch
 
+    from benchmarks.torch_equivalence import score_tolerance
     from repro_torch.core import ordering
 
     d = x.shape[1]
@@ -338,36 +326,16 @@ def walk_against_plain(x, kernel, plain, atol, x_plain=None):
 
 
 def parting_tie(x, order_a, order_b, reducer, atol):
-    """Replay the masked scan on ``x`` along ``order_a`` up to the first
-    position p where ``order_b`` parts from it. There the two roots must
-    tie: their scores may differ by no more than the score tolerance that
-    moments moved by ``atol`` allow (the rule of
-    :func:`walk_against_plain`). Returns (p, the score gap over its
-    tolerance); (None, 0.0) for equal orders."""
-    import torch
+    """:func:`benchmarks.torch_equivalence.parting_tie` (the first position
+    where ``order_b`` parts from ``order_a``, and the two roots' score gap
+    there over the tolerance that moments moved by ``atol`` allow); fails
+    when the gap exceeds the tolerance."""
+    from benchmarks.torch_equivalence import parting_tie as part
 
-    from repro_torch.core import ordering
-
-    parts = np.nonzero(np.asarray(order_a) != np.asarray(order_b))[0]
-    if not len(parts):
-        return None, 0.0
-    p = int(parts[0])
-    active = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
-    for step in range(p):
-        root = torch.tensor(int(order_a[step]), device=x.device)
-        _, _, mu, var = ordering.step_standardize(x, reducer)
-        x, active = ordering.residualize(x, active, root, mu, var, reducer)
-    x_std, c, _, _ = ordering.step_standardize(x, reducer)
-    cm = reducer.col_moments(x_std)
-    m1, m2 = reducer.moment_rows(x_std, c)
-    scores = ordering.step_scores(*cm, m1, m2, active)
-    tol = score_tolerance(*cm, m1, m2, active, atol)
-    a, b = int(order_a[p]), int(order_b[p])
-    gap = abs(float(scores[a] - scores[b]))
-    ratio = gap / float(tol[a] + tol[b])
+    p, ratio = part(x, order_a, order_b, reducer, atol)
     if ratio > 1.0:
-        fail(f"orders part at position {p} ({a} against {b}) by a score "
-             f"gap {gap:.3e}, beyond the tolerance")
+        fail(f"orders part at position {p} ({int(order_a[p])} against "
+             f"{int(order_b[p])}) by {ratio:.3f} of the score tolerance")
     return p, ratio
 
 
@@ -378,6 +346,183 @@ def order_consistent(order, b_true) -> bool:
     pos[np.asarray(order)] = np.arange(d)
     src, dst = np.nonzero(b_true)  # b[i, j] != 0: j -> i
     return bool(np.all(pos[dst] < pos[src]))
+
+
+def paper_experiments(dev, cuda_ms, sms, clock_mhz):
+    """Phase 12, the paper's experiments (section 3.1, Fig. 2 and 3,
+    Table 1, section 4.2) through the port's benchmarks, all on ``dev``.
+    Their B1 launches are counted over the phase, less the gene-shape
+    timing and comparison launches. Returns (those launches, B1 ms at the
+    gene fit's first step, its bound (ms, by operations, by bytes), that
+    shape as "m x d", B1's error there against float64)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from benchmarks import (torch_equivalence, torch_gene, torch_speedup,
+                            torch_stocks)
+    from repro_torch.baselines import golem, ica_lingam, notears
+    from repro_torch.core import ordering
+    from repro_torch.data.simulate import simulate_lingam
+    from repro_torch.kernels import ops, pairwise_stats
+
+    t_exp = time.perf_counter()
+    exp_s = {}
+    pairwise_stats.launches = 0
+
+    # (a) the speed-up: the sequential pair loop on the host against the
+    # kernel ordering on the card, the quick grid and SPEEDUP_WIDE.
+    t0 = time.perf_counter()
+    cpu = torch_speedup.host_cpu()
+    print(f"host CPU: {cpu['vendor']} {cpu['model']} (family "
+          f"{cpu['family']}, model {cpu['model_number']}), "
+          f"{cpu['threads']} threads")
+    for m_s, d_s in torch_speedup.QUICK_GRID + [SPEEDUP_WIDE]:
+        try:
+            row = torch_speedup.shape_row(m_s, d_s, dev, reps=3)
+        except RuntimeError as err:  # orders part where no tie is
+            fail(str(err))
+        if row["b1_launches_per_ordering"] != d_s:
+            fail(f"({m_s}, {d_s}): {row['b1_launches_per_ordering']} B1 "
+                 f"launches per ordering, expected {d_s}")
+        print(f"speed-up ({m_s}, {d_s}): sequential {row['sequential_s']:.3f}"
+              f" s (host), kernel ordering {row['kernel_ordering_s']:.4f} s, "
+              f"blocked {row['blocked_ordering_s']:.4f} s, fit "
+              f"{row['fit_s']:.4f} s (medians of 3); speed-up "
+              f"{row['speedup']:.1f}x; ordering share of the sequential fit "
+              f"{row['ordering_share']:.3f}; orders equal "
+              f"{row['orders_equal_sequential']} (parting at "
+              f"{row['parting_sequential']}, gap "
+              f"{row['parting_gap_ratio_sequential']:.3f} of the tie "
+              f"tolerance)")
+    exp_s["speedup"] = time.perf_counter() - t0
+
+    # (b) equivalence (paper Fig. 3): 10 simulations of (3000, 8).
+    t0 = time.perf_counter()
+    eq = torch_equivalence.run(quick=True, device=dev)
+    exp_s["equivalence"] = time.perf_counter() - t0
+    print(f"equivalence: {eq['n_sims']} sims of ({eq['m']}, {eq['d']}): "
+          f"order match {eq['order_match_rate']:.2f} (partings within "
+          f"{eq['parting_gap_ratio_max']:.3f} of the tie tolerance), F1 "
+          f"{eq['f1_mean']:.3f} +- {eq['f1_std']:.3f}, SHD "
+          f"{eq['shd_mean']:.2f}")
+    if eq["f1_mean"] < 0.9 or eq["parting_gap_ratio_max"] > 1.0:
+        fail("the port's DirectLiNGAM does not reproduce paper Fig. 3")
+
+    # (c) the baselines on the card at (2000, 10), seed 0. A torch
+    # function mode records the devices of the tensors that each one's
+    # working operations receive.
+    class DeviceLog(TorchFunctionMode):
+        def __init__(self, watched):
+            super().__init__()
+            self.watched, self.seen = watched, {}
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if name in self.watched:
+                self.seen.setdefault(name, set()).update(
+                    a.device.type for a in args if torch.is_tensor(a))
+            return func(*args, **(kwargs or {}))
+
+    gt_c = simulate_lingam(m=2000, d=10, seed=0)
+    baselines = {}
+    for name, watched, fit in (
+        ("notears", {"linalg_matrix_exp", "matmul"},
+         lambda: notears.notears_fit(
+            gt_c.data, lam=0.01, inner_steps=300, max_outer=8)),
+        ("golem", {"linalg_matrix_exp", "linalg_slogdet", "matmul"},
+         lambda: golem.golem_fit(gt_c.data, n_steps=1000)),
+        ("ica_lingam", {"linalg_eigh", "tanh", "matmul",
+                        "linalg_solve_ex"},
+         lambda: ica_lingam.ICALiNGAM(n_steps=200, prune_threshold=0.1)
+         .fit(gt_c.data).adjacency_),
+    ):
+        log = DeviceLog(watched)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with log:
+            b_c = fit()
+        sec = time.perf_counter() - t0
+        f1, rec, shd = torch_equivalence.f1_rec_shd(b_c, gt_c.adjacency)
+        baselines[name] = {"f1": float(f1), "recall": float(rec),
+                           "shd": int(shd), "s": sec}
+        print(f"{name} (2000, 10) on the card: {sec:.2f} s, F1 {f1:.3f}, "
+              f"recall {rec:.3f}, SHD {shd}; devices of its "
+              f"{sorted(watched)} inputs: {log.seen}")
+        if set(log.seen) != watched or any(v != {dev.type}
+                                          for v in log.seen.values()):
+            fail(f"{name}'s working tensors were not all on the card")
+    if not baselines["ica_lingam"]["f1"] > 0.7:
+        fail("ICA-LiNGAM recovers the DAG at F1 <= 0.7")
+    exp_s["baselines"] = sum(b["s"] for b in baselines.values())
+
+    # (d) the gene study at the paper's width (Table 1): m = 50,000,
+    # d = 961, 192 interventions. The simulation is a host loop.
+    t0 = time.perf_counter()
+    gene_data = torch_gene.gene_data(quick=False)
+    exp_s["gene_simulate"] = time.perf_counter() - t0
+    print(f"simulate_gene_perturb (50,000, 961) on the host: "
+          f"{exp_s['gene_simulate']:.1f} s; training rows "
+          f"{gene_data.x_train.shape[0]}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gene = torch_gene.run(quick=False, device=dev, data=gene_data)
+    exp_s["gene"] = time.perf_counter() - t0
+    experiments_launches = pairwise_stats.launches
+    gene_peak = torch.cuda.max_memory_allocated()
+    dl_g, nt_g = gene["directlingam"], gene["notears"]
+    print(f"gene study (m={gene['m']}, d={gene['d']}, {gene['n_held_out']} "
+          f"held-out interventions): DirectLiNGAM fit {dl_g['fit_s']:.2f} s "
+          f"({dl_g['b1_launches']} B1 launches), I-NLL {dl_g['inll']:.4f}, "
+          f"I-MAE {dl_g['imae']:.4f}; NOTEARS fit {nt_g['fit_s']:.2f} s, "
+          f"I-NLL {nt_g['inll']:.4f}, I-MAE {nt_g['imae']:.4f}; SVGD "
+          f"{dl_g['svgd_s']:.2f} / {nt_g['svgd_s']:.2f} s; peak device "
+          f"memory {gene_peak / 2**30:.2f} GiB")
+    gene_vals = [v for r in (dl_g, nt_g) for v in
+                 (r["inll"], r["imae"], r["noise_scale"])]
+    if not np.all(np.isfinite(gene_vals)) or dl_g["b1_launches"] != gene["d"]:
+        fail("the gene study is not finite, or its fit missed B1")
+    # B1 at the fit's first step: timed, and a 64-row tile of pairs held
+    # against the float64 plain version.
+    xs_g, c_g, _, _ = ordering.step_standardize(
+        torch.from_numpy(gene_data.x_train).to(dev), ordering.LocalReducer())
+    m_g, d_g = xs_g.shape
+    g1, g2 = ops.pairwise_moments(xs_g, c_g)
+    q1, q2 = pairwise_stats.pairwise_moment_sums_plain(
+        xs_g.double(), c_g.double(), row0=0, rows=64)
+    gene_err = max(offdiag_err(g1[:64], q1 / m_g),
+                   offdiag_err(g2[:64], q2 / m_g))
+    gene_ms = cuda_ms(lambda: ops.pairwise_moments(xs_g, c_g), 5)
+    gene_bound = moment_bound_ms(d_g, d_g, m_g,
+                                 4 * (m_g * d_g + 3 * d_g * d_g), sms,
+                                 clock_mhz)
+    print(f"B1 at the gene fit's first step ({m_g}, {d_g}): {gene_ms:.3f} ms "
+          f"(median of 5, CUDA events), bound {gene_bound[0]:.3f} ms "
+          f"(special-function ops {gene_bound[1]:.3f}, bytes "
+          f"{gene_bound[2]:.3f}); rows 0-63 against float64: max "
+          f"off-diagonal err {gene_err:.3e} (tolerance {ATOL_F64_FULL})")
+    if not gene_err <= ATOL_F64_FULL:
+        fail(f"B1 disagrees with its float64 plain version at the gene "
+             f"shape: {gene_err}")
+    del xs_g, c_g, g1, g2, q1, q2, gene_data
+    pairwise_stats.launches = experiments_launches  # timing does not count
+
+    # (e) the stock panel (paper Fig. 4 / Table 2) at d = 487.
+    t0 = time.perf_counter()
+    stocks = torch_stocks.run(quick=False, device=dev)
+    exp_s["stocks"] = time.perf_counter() - t0
+    print(f"stocks (m={stocks['m']}, d={stocks['d']}): VarLiNGAM fit "
+          f"{stocks['fit_s']:.3f} s, b0 precision "
+          f"{stocks['b0_precision']:.3f}, recall {stocks['b0_recall']:.3f}")
+    if not (0.0 < stocks["b0_precision"] <= 1.0
+            and 0.0 < stocks["b0_recall"] <= 1.0):
+        fail("the stock panel's graph is empty")
+    experiments_launches = pairwise_stats.launches
+    exp_total = time.perf_counter() - t_exp
+    print("experiments phase: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in exp_s.items())
+        + f"; {exp_total:.1f} s in all, {experiments_launches} B1 launches")
+    return (experiments_launches, gene_ms, gene_bound, f"{m_g}x{d_g}",
+            gene_err)
 
 
 def main() -> int:
@@ -1808,7 +1953,12 @@ def main() -> int:
     serve_s = time.perf_counter() - t_serve
     print(f"serving phase: {serve_s:.1f} s")
 
-    # 11. kernels line: launches are those of each kernel's path (the
+    # 12. the paper's experiments
+    (experiments_launches, gene_ms, gene_bound, gene_shape,
+     gene_err) = paper_experiments(dev, cuda_ms, sms, clock_mhz)
+
+    # 11. kernels line (printed after phase 12, whose launches it
+    # reports): launches are those of each kernel's path (the
     # lingam-1m-100 fit, the rolling stream, B3's entry point; for B1 also
     # the vmap bootstrap and the serving engine's fit burst, for B2 the
     # serving engine's batched refits).
@@ -1852,6 +2002,11 @@ def main() -> int:
         "serving_requests_per_s": requests_per_s,
         "warmup_search": [r for r in warm_rows
                           if r["op"] == "pairwise_moments"],
+        "experiments_launches": experiments_launches,
+        "gene_ms": gene_ms,
+        "gene_bound_ms": gene_bound[0],
+        "gene_shape": gene_shape,
+        "gene_max_abs_err": gene_err,
         "ptxas": b12_ptxas,
     }, {
         "name": "pairwise_moment_sums_rows",
@@ -1909,7 +2064,7 @@ def main() -> int:
           f"{worst:.3e}, batched B1 {worst_batched:.3e}, B2 {worst_rows:.3e} "
           f"per sample, B3 {worst_fused:.3e} per sample)")
 
-    # 12. last line
+    # 13. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,11 @@ from .batched import (  # noqa: F401
     resample_indices,
 )
 from .bootstrap import BootstrapResult, bootstrap_lingam  # noqa: F401
-from .direct_lingam import DirectLiNGAM  # noqa: F401
-from .ordering import causal_order, causal_order_compact  # noqa: F401
+from .direct_lingam import DirectLiNGAM, fit_direct_lingam  # noqa: F401
+from .ordering import (  # noqa: F401
+    causal_order,
+    causal_order_compact,
+    ordering_scores,
+)
 from .pruning import estimate_adjacency  # noqa: F401
 from .var_lingam import VarLiNGAM, fit_var_lingam  # noqa: F401

@@ -63,3 +63,7 @@ class DirectLiNGAM:
         self.adjacency_ = adjacency
         self.resid_var_ = resid_var
         return self
+
+
+def fit_direct_lingam(x, **kw) -> DirectLiNGAM:
+    return DirectLiNGAM(**kw).fit(x)

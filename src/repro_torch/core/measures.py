@@ -46,3 +46,19 @@ def nonlinear_moments(u: torch.Tensor, axis: int = -1):
         (t.sum(dim=axis, dtype=torch.float64) / n).to(u.dtype)
         for t in nonlinear_terms(u)
     )
+
+
+def entropy(u: torch.Tensor, axis: int = -1):
+    """H(u) of standardized samples along ``axis``."""
+    m1, m2 = nonlinear_moments(u, axis=axis)
+    return entropy_from_moments(m1, m2)
+
+
+def diff_mutual_info(h_xi, h_xj, h_ri_j, h_rj_i):
+    """Difference of mutual information for the pair (i, j).
+
+    Matches the paper's ``_diff_mutual_info``:
+        (H(x_j) + H(r_i<-j / std)) - (H(x_i) + H(r_j<-i / std))
+    Positive => i is more plausibly upstream of j.
+    """
+    return (h_xj + h_ri_j) - (h_xi + h_rj_i)

@@ -128,6 +128,23 @@ def step_scores(cm1, cm2, m1, m2, active):
     return torch.where(active, k_list, _NEG_INF)
 
 
+def ordering_scores(x, active, *, backend=None):
+    """k_list scores for one ordering step (local plan), on ``x.device``.
+
+    Args:
+      x:      (m, d) current (partially residualized) data.
+      active: (d,) bool mask of variables still to be ordered.
+    Returns:
+      (k_list, x_std, c): scores with -1e30 at inactive entries; the
+      standardized data and correlation (reused by the residual update).
+    """
+    reducer = LocalReducer(backend=backend)
+    x_std, c, _, _ = reducer.standardize(x)
+    m1, m2 = reducer.moment_rows(x_std, c)
+    cm1, cm2 = reducer.col_moments(x_std)
+    return step_scores(cm1, cm2, m1, m2, active), x_std, c
+
+
 def ordering_step(x, active, reducer):
     """One masked ordering step.
 

@@ -6,6 +6,11 @@ noise e ~ Uniform(0, 1) (non-Gaussian, as LiNGAM requires). Given the
 same arguments it returns the same arrays as the JAX package's
 ``repro.data.simulate.simulate_lingam``.
 
+``simulate_do`` -- interventional samples under ``do(x_j = v_j)``, and
+``simulate_gene_perturb`` -- the paper's section 4.1 stand-in (a sparse
+LiNGAM SEM with single-gene interventions, Perturb-seq-like): the same
+arrays as the JAX package's functions of those names.
+
 ``simulate_var_stocks`` -- the paper's section 4.2 stand-in: a stationary
 VAR(1) series with a sparse LiNGAM instantaneous graph (stock-like), the
 same arrays as ``repro.data.simulate.simulate_var_stocks``.
@@ -83,6 +88,79 @@ def simulate_lingam(
     # order must list *permuted* ids in causal order: original node k is now
     # called inv[k]; original order was 0..d-1 by construction.
     return LingamGroundTruth(adjacency=b_perm, order=order, data=x.astype(np.float32))
+
+
+def simulate_do(
+    adjacency,
+    do,
+    m: int = 10_000,
+    noise: str = "uniform",
+    seed: int = 0,
+) -> np.ndarray:
+    """Brute-force interventional sampler: draws from the SEM under
+    ``do(x_j = v_j for j, v_j in do.items())``.
+
+    The do-operator severs each intervened variable's incoming edges
+    (its row of ``B``) and pins its value before effects propagate —
+    exactly the graph surgery :mod:`repro_torch.infer.intervene` performs
+    algebraically, but realized sample-by-sample so analytic effect /
+    interventional-moment answers can be validated against Monte Carlo.
+    Noise matches :func:`simulate_lingam` (``uniform``: U(0,1);
+    ``laplace``: Laplace(0,1)); a shared ``seed`` yields common random
+    numbers across calls, so finite-difference effect estimates
+    ``(E[x | do(v+1)] - E[x | do(v)])`` are exact up to solver
+    precision, not just in expectation.
+
+    Returns (m, d) float32 samples.
+    """
+    b = np.array(adjacency, dtype=np.float64, copy=True)
+    d = b.shape[0]
+    rng = np.random.default_rng(seed)
+    if noise == "uniform":
+        e = rng.uniform(0.0, 1.0, size=(m, d))
+    elif noise == "laplace":
+        e = rng.laplace(0.0, 1.0, size=(m, d))
+    else:
+        raise ValueError(noise)
+    for j, v in do.items():
+        b[int(j), :] = 0.0
+        e[:, int(j)] = float(v)
+    x = np.linalg.solve(np.eye(d) - b, e.T).T
+    return x.astype(np.float32)
+
+
+def simulate_gene_perturb(
+    m: int = 20_000,
+    d: int = 200,
+    n_interventions: int = 50,
+    edge_prob: float = 0.02,
+    seed: int = 0,
+):
+    """Perturb-seq-like data: sparse LiNGAM SEM + single-gene interventions.
+
+    Returns (data, intervention_targets, adjacency). Each sample has a
+    target gene whose value is set by the intervention (do-operator) before
+    effects propagate; target = -1 means observational (control).
+    """
+    rng = np.random.default_rng(seed)
+    b = np.zeros((d, d))
+    for i in range(1, d):
+        parents = rng.random(i) < edge_prob
+        b[i, :i][parents] = rng.standard_normal(parents.sum()) * 0.8
+    targets = np.full(m, -1, dtype=np.int64)
+    n_int = int(0.8 * m)
+    genes = rng.integers(0, n_interventions, size=n_int)
+    targets[:n_int] = genes
+
+    e = rng.laplace(0.0, 1.0, size=(m, d))
+    x = np.zeros((m, d), dtype=np.float64)
+    # Topological order is 0..d-1 by construction; propagate row by row.
+    for i in range(d):
+        contrib = x @ b[i]  # parents already filled (j < i)
+        x[:, i] = contrib + e[:, i]
+        hit = targets == i
+        x[hit, i] = 5.0  # do(x_i = const) — strong over-expression
+    return x.astype(np.float32), targets, b
 
 
 def simulate_var_stocks(

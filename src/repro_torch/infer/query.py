@@ -167,12 +167,8 @@ class QueryEngine:
     its own device, or on ``device`` when its fields are numpy arrays.
     """
 
-    def __init__(self, *, batch_size: int = 8,
-                 backend: Optional[str] = None, tune: str = "cache",
-                 device="cuda"):
+    def __init__(self, *, batch_size: int = 8, device="cuda"):
         self.batch_size = batch_size
-        self.backend = backend
-        self.tune = tune
         self.device = device
 
     def _resolve(self, q) -> FittedGraph:
@@ -240,15 +236,14 @@ class QueryEngine:
         gs, adj, order = self._stack_graphs(part)
         dev = adj.device
         rows = np.stack([q.rows for q in part])  # (b, n, d)
-        _, n, d = rows.shape
-        slab = rca_lib._sample_slab(n, d, self.backend, self.tune, None, dev)
+        slab = rca_lib._sample_slab(rows.shape[1])
         targets = torch.as_tensor(
             [0 if q.target is None else int(q.target) for q in part],
             device=dev)
         means = torch.stack([g.mean for g in gs])
         noise_var = torch.stack([g.noise_var for g in gs])
         scores_parts, contrib_parts = [], []
-        for start in range(0, n, slab):
+        for start in range(0, rows.shape[1], slab):
             block = rows[:, start:start + slab]
             k = block.shape[1]
             padded = torch.as_tensor(rca_lib._pad_rows(block, slab, axis=1),

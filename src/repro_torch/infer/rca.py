@@ -20,8 +20,8 @@ The ``*_impl`` functions run on the device of the tensors they are
 given and take a leading batch axis of graphs (adjacency (b, d, d), rows
 (b, n, d), one target per graph), the reference's ``vmap`` written out.
 :func:`attribute` is the host-facing entry; it slabs the sample axis by
-the caller's ``chunk`` or by the sample block the kernel dispatcher
-gives for the shape (:func:`_sample_slab`).
+the caller's ``chunk`` or by at most :data:`SAMPLE_SLAB` rows
+(:func:`_sample_slab`).
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ from repro_torch.core.batched import pow2_bucket
 from .effects import target_effects_row, total_effects_impl
 
 _EPS = 1e-12
+#: Rows per device pass of the noise decomposition.
+SAMPLE_SLAB = 512
 
 
 def noise_terms_impl(adjacency, rows, mean):
@@ -65,8 +67,11 @@ def contributions_impl(adjacency, order, rows, mean, target):
 
 
 def _rca(adjacency, order, rows, mean, resid_var, target):
-    return (noise_scores_impl(adjacency, rows, mean, resid_var),
-            contributions_impl(adjacency, order, rows, mean, target))
+    """(scores, contributions) of one slab, the noise terms formed once."""
+    e = noise_terms_impl(adjacency, rows, mean)
+    scale = torch.rsqrt(torch.clamp(resid_var.float(), min=_EPS))
+    t_row = target_effects_row(adjacency, order, target)
+    return e * scale[..., None, :], e * t_row[..., None, :]
 
 
 @dataclasses.dataclass
@@ -85,19 +90,12 @@ class RCAResult:
         return [(int(j), float(z[j])) for j in idx]
 
 
-def _sample_slab(n: int, d: int, backend, tune: str, chunk,
-                 device) -> int:
-    """Sample slab of the noise pass, as the reference asks its
-    dispatcher for the chunked op's sample block. The port's plans carry
-    no sample block (the slab is a caller's memory bound, not a tuned
-    field), so this is the whole batch unless ``chunk`` bounds it."""
-    from repro_torch.kernels import tune as ktune
-
-    ktune.dispatch(
-        "pairwise_moment_sums_chunked", (n, d),
-        backend=backend, mode=tune, chunk=chunk, device=device,
-    )
-    return n
+def _sample_slab(n: int) -> int:
+    """Sample slab of the noise pass: at most :data:`SAMPLE_SLAB` rows per
+    device pass, the reference's slab (its dispatcher's sample block for
+    the chunked op), so that a pass holds a few (b, slab, d) tensors
+    whatever n is (one (8, 1e6, 487) float32 tensor would be 15.6 GB)."""
+    return min(n, SAMPLE_SLAB)
 
 
 def _pad_rows(block: np.ndarray, slab: int, axis: int = 0) -> np.ndarray:
@@ -121,8 +119,6 @@ def attribute(
     mean=None,
     target: Optional[int] = None,
     chunk: Optional[int] = None,
-    backend: Optional[str] = None,
-    tune: str = "cache",
 ) -> RCAResult:
     """Root-cause attribution of ``rows`` under a fitted graph, on the
     fit's device.
@@ -134,9 +130,8 @@ def attribute(
               centered data).
       target: optional variable index; when given, the exact additive
               contribution split toward that variable is returned too.
-      chunk:  bound on the sample slab per device pass; None asks
+      chunk:  bound on the sample slab per device pass; None takes
               :func:`_sample_slab`.
-      tune:   dispatcher mode for the slab decision.
     """
     device = result.adjacency.device
     rows = np.asarray(rows, np.float32)
@@ -145,7 +140,7 @@ def attribute(
     n, d = rows.shape
     mu = (torch.zeros((d,), device=device) if mean is None
           else torch.as_tensor(mean, dtype=torch.float32, device=device))
-    slab = chunk or _sample_slab(n, d, backend, tune, chunk, device)
+    slab = chunk or _sample_slab(n)
     tgt = 0 if target is None else int(target)
     scores_parts, contrib_parts = [], []
     for start in range(0, n, slab):

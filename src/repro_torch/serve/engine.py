@@ -116,7 +116,7 @@ class CausalDiscoveryEngine:
         self.config = config or lingam_api.FitConfig(compaction="staged")
         if getattr(self.config, "partition", None) is not None:
             raise NotImplementedError(
-                "the mesh plan is not ported yet (ROADMAP queue A, item 12)"
+                "the mesh plan is not ported yet (ROADMAP queue A, item 5)"
             )
         self.device = lingam_api.resolve_device(device)
         self.batch_size = batch_size
@@ -125,12 +125,8 @@ class CausalDiscoveryEngine:
         # Errors from the most recent flush_streams call; empty means
         # every due refit landed. Bounded.
         self.last_flush_errors: BoundedRing = BoundedRing(256)
-        self.queries = query_lib.QueryEngine(
-            batch_size=batch_size,
-            backend=self.config.backend,
-            tune=self.config.tune,
-            device=self.device,
-        )
+        self.queries = query_lib.QueryEngine(batch_size=batch_size,
+                                             device=self.device)
         if warmup_shapes:
             self.warmup(warmup_shapes)
 

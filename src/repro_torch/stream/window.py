@@ -267,7 +267,10 @@ class RollingVarLiNGAM:
     def push(self, rows) -> stats.MomentState:
         """Slide the window by one chunk: absorb ``rows``' augmented
         moments, retract the evicted chunk's. Returns the absorbed
-        chunk's own augmented state."""
+        chunk's own augmented state. Raises ``ValueError`` on rows of the
+        wrong shape or with a non-finite value, leaving the window as it
+        was (the reference absorbs NaN, and its window stays non-finite
+        after the chunk's eviction)."""
         # Copy unconditionally: the ring and tails hold these rows until
         # retraction, so aliasing a caller-reused buffer would corrupt
         # the window.
@@ -276,6 +279,10 @@ class RollingVarLiNGAM:
             raise ValueError(
                 f"expected ({self.chunk}, {self.d}) rows, got {rows.shape}"
             )
+        # A non-finite value would enter aug_state for good: the retract
+        # of its chunk cannot remove it. Refuse it before any state moves.
+        if not np.isfinite(rows).all():
+            raise ValueError("rows hold a non-finite value (NaN or inf)")
         buf = rows if self._prev_tail is None else np.concatenate(
             [self._prev_tail, rows]
         )

@@ -277,3 +277,27 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "0 []", out.stdout
     assert "repro_torch.kernels.pairwise_stats" in modules
+
+
+def test_scripts_beside_the_port_import_neither_jax_nor_reference():
+    """chip_smoke.py, the port's benchmarks and its examples import only
+    the port (and numpy, scipy, the standard library)."""
+    root = SRC.parent
+    files = sorted([root / "chip_smoke.py",
+                    *(root / "benchmarks").glob("torch_*.py"),
+                    *(root / "examples").glob("torch_*.py")])
+    assert len(files) >= 10, files
+    code = (
+        "import importlib.util, sys\n"
+        f"for i, path in enumerate({[str(f) for f in files]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'm{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro') or n.startswith('jax'))\n"
+        "print(len(bad), bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=f"{SRC}:{root}")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0 []", out.stdout

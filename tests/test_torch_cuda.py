@@ -18,7 +18,10 @@ against float64 numpy, within 1e-5. A small serving round trip on the
 card: batched fits with the single fits' orders and adjacency within
 1e-5, one B2 launch per ordering step of a batched flush, the injected
 drift alert delivered once, and effect answers within 1e-5 of the direct
-call.
+call. The paper's rival estimators on the card held to their DAGs as on
+the CPU (GOLEM's steps within 1e-4 of the CPU's), SVGD within 1e-5 of
+the CPU's, one speed-up row with one B1 launch per step, RCA past one
+slab within 1e-5 of the CPU's, and a NaN post refused.
 """
 
 import os
@@ -433,3 +436,84 @@ def test_cuda_engine_round_trip(cuda_device):
         eng.stream_session(sids[1]).last_fit.result).cpu().numpy(),
         atol=1e-5)
     assert qs[1].graph.device.type == "cuda"
+
+
+def _f1(b_est, b_true, thresh=0.1):
+    e, t = np.abs(b_est) > thresh, b_true != 0
+    tp, fp, fn = np.sum(e & t), np.sum(e & ~t), np.sum(~e & t)
+    prec, rec = tp / max(tp + fp, 1), tp / max(tp + fn, 1)
+    return 2 * prec * rec / max(prec + rec, 1e-12), fp + fn
+
+
+@pytest.mark.gpu
+def test_cuda_baselines_recover_their_dags(cuda_device):
+    """The rival estimators on the card, held to the true DAG as their CPU
+    tests are: NOTEARS F1 >= 0.75 and SHD <= 1 on the CPU test's DAG,
+    GOLEM F1 1 and SHD 0 (as on the CPU), ICA-LiNGAM F1 > 0.7. Adam steps
+    on near-zero gradients take the sign of their float32 rounding, so
+    the card's and the CPU's iterates part by ~1e-2 on some entries; the
+    fits are compared through the DAG."""
+    from repro_torch.baselines import golem, ica_lingam, notears
+
+    gt = simulate_lingam(m=1000, d=6, seed=4)
+    b = notears.notears_fit(gt.data, lam=0.001, inner_steps=100,
+                            max_outer=8)
+    f1, shd = _f1(b, gt.adjacency)
+    assert f1 >= 0.75 and shd <= 1, (f1, shd)
+    assert _f1(golem.golem_fit(gt.data, n_steps=1000), gt.adjacency) == (
+        1.0, 0)
+    gt = simulate_lingam(m=8000, d=6, seed=2)
+    model = ica_lingam.ICALiNGAM(n_steps=300, prune_threshold=0.1).fit(
+        gt.data)
+    assert _f1(model.adjacency_, gt.adjacency)[0] > 0.7
+
+
+@pytest.mark.gpu
+def test_cuda_svgd_matches_cpu(cuda_device):
+    from repro_torch.vi import svgd
+
+    p = np.random.default_rng(0).standard_normal((32, 2)).astype(np.float32)
+    b = torch.tensor([[0.0, 0.0], [0.8, 0.0]])
+    got = svgd.svgd(torch.tensor(p, device=cuda_device),
+                    svgd.gaussian_sem_logp(b.to(cuda_device), 1.0),
+                    n_steps=50)
+    want = svgd.svgd(torch.tensor(p), svgd.gaussian_sem_logp(b, 1.0),
+                     n_steps=50)
+    assert got.is_cuda
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_speedup_row_orders_agree(cuda_device):
+    """One shape of the speed-up grid on the card: one B1 launch per
+    ordering step, orders equal to the sequential loop's or parting only
+    at a tie (the row raises otherwise)."""
+    from benchmarks import torch_speedup
+
+    row = torch_speedup.shape_row(1000, 8, cuda_device, reps=1)
+    assert row["b1_launches_per_ordering"] == 8
+    assert row["kernel_ordering_s"] > 0.0 and row["speedup"] > 0.0
+
+
+@pytest.mark.gpu
+def test_cuda_rca_slabs_and_non_finite_posts(cuda_device):
+    """RCA past one 512-row slab on the card equals the CPU's answers; a
+    NaN post is refused on the card as on the CPU."""
+    from repro_torch.infer import rca
+    from repro_torch.stream import window
+
+    gt = simulate_lingam(m=4000, d=6, seed=8)
+    res = api.fit_fn(torch.tensor(np.ascontiguousarray(gt.data)))
+    on_card = api.FitResult(*(t.to(cuda_device) for t in (
+        res.order, res.adjacency, res.resid_var)))
+    mean = gt.data.mean(axis=0)
+    got = rca.attribute(on_card, gt.data[:1300], mean=mean, target=2)
+    want = rca.attribute(res, gt.data[:1300], mean=mean, target=2)
+    np.testing.assert_allclose(got.scores, want.scores, rtol=1e-5,
+                               atol=1e-5)
+    roll = window.RollingVarLiNGAM(4, 32, 3, device=cuda_device)
+    rows = np.zeros((32, 4), np.float32)
+    rows[3, 1] = np.nan
+    with pytest.raises(ValueError, match="non-finite"):
+        roll.push(rows)
+    assert roll.n_pushed == 0

@@ -96,6 +96,32 @@ def test_rca_slabs_match_whole_batch(chunk):
     assert rca.attribute(res, rows[0], mean=mean).scores.shape == (1, 6)
 
 
+def test_sample_slab_is_bounded_as_the_reference():
+    """The noise pass takes at most 512 rows a slab, the reference's slab,
+    whatever n is (one (8, 1e6, 487) float32 tensor would be 15.6 GB)."""
+    assert rca._sample_slab(100_000) == rca.SAMPLE_SLAB == 512
+    assert jrca._sample_slab(100_000, 487, None, "off", None) == 512
+    assert rca._sample_slab(100) == 100
+
+
+def test_rca_past_one_slab_matches_reference_and_forms_noise_once(
+        monkeypatch):
+    gt = simulate_lingam(m=4000, d=6, seed=8)
+    jres, res = _fits(gt)
+    rows = gt.data[:1300]  # three slabs: 512, 512, 276 (padded to 512)
+    mean = gt.data.mean(axis=0)
+    calls = []
+    noise_terms = rca.noise_terms_impl
+    monkeypatch.setattr(rca, "noise_terms_impl",
+                        lambda *a: calls.append(a[1].shape) or noise_terms(*a))
+    got = rca.attribute(res, rows, mean=mean, target=2)
+    assert calls == [(512, 6)] * 3
+    want = jrca.attribute(jres, rows, mean=mean, target=2)
+    np.testing.assert_allclose(got.scores, want.scores, **TOL)
+    np.testing.assert_allclose(got.contributions, want.contributions, **TOL)
+    np.testing.assert_array_equal(got.root, want.root)
+
+
 def test_pad_rows_matches_reference():
     block = np.arange(10, dtype=np.float32).reshape(5, 2)
     for slab in (5, 8, 16):

@@ -262,8 +262,11 @@ def test_engine_flush_isolates_failing_session(monkeypatch):
 
 
 def test_engine_flush_isolates_a_session_with_nan_rows(fit_many_calls):
-    """A window holding non-finite rows comes back as a FlushError and
-    stays out of the batched refit; its peer's refit lands."""
+    """A window whose refit inputs are not finite comes back as a
+    FlushError and stays out of the batched refit; its peer's refit lands.
+    A NaN row is refused at the post itself (the window stays as it was),
+    so the bad window here holds a finite row whose square overflows
+    float32: its moments, and so its refit inputs, are non-finite."""
     d, chunk, wc = 6, 64, 3
     eng = _engine(8)
     cfg = _stream_config(d, chunk, wc)
@@ -272,7 +275,10 @@ def test_engine_flush_isolates_a_session_with_nan_rows(fit_many_calls):
         eng.stream_session(good).post(rows)
         rows = rows.copy()
         if k == 1:
-            rows[5, 2] = np.nan
+            with pytest.raises(ValueError, match="non-finite"):
+                eng.stream_session(bad).post(np.where(
+                    np.arange(d) == 2, np.nan, rows))
+            rows[5, 2] = 1e30
         eng.stream_session(bad).post(rows)
     out = eng.flush_streams()
     assert [sid for sid, _ in out] == [good]

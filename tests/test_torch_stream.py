@@ -274,6 +274,70 @@ def test_rolling_push_copies_caller_buffer_and_validates():
         roll.push(np.zeros((16, 4), np.float32))
 
 
+def _window_snapshot(roll):
+    s = roll.aug_state
+    return (float(s.count), s.mean.clone(), s.m2.clone(),
+            [b.copy() for b in roll.ring], roll._prev_tail.copy(),
+            None if roll._lead_tail is None else roll._lead_tail.copy(),
+            roll.n_pushed)
+
+
+def _assert_same_window(a, b):
+    assert a[0] == b[0] and a[6] == b[6]
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    assert len(a[3]) == len(b[3])
+    assert all(np.array_equal(x, y) for x, y in zip(a[3], b[3]))
+    assert np.array_equal(a[4], b[4])
+    assert (a[5] is None) == (b[5] is None)
+    assert a[5] is None or np.array_equal(a[5], b[5])
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_rolling_push_rejects_non_finite_rows(bad):
+    """A non-finite value is refused before any state moves (the window
+    would stay non-finite after its chunk's eviction), and the window
+    then refits as one that never saw it."""
+    chunks = _stock_chunks(WC + 3, seed=4)
+    roll = window.RollingVarLiNGAM(D, CHUNK, WC, config=CFG, device="cpu")
+    clean = window.RollingVarLiNGAM(D, CHUNK, WC, config=CFG, device="cpu")
+    for k, rows in enumerate(chunks):
+        if k == 1:
+            before = _window_snapshot(roll)
+            poisoned = rows.copy()
+            poisoned[7, 3] = bad
+            with pytest.raises(ValueError, match="non-finite"):
+                roll.push(poisoned)
+            _assert_same_window(_window_snapshot(roll), before)
+        roll.push(rows)
+        clean.push(rows)
+    assert torch.isfinite(roll.aug_state.m2).all()
+    got, want = roll.refit(), clean.refit()
+    np.testing.assert_array_equal(got.result.order.numpy(),
+                                  want.result.order.numpy())
+    assert torch.equal(got.result.adjacency, want.result.adjacency)
+
+
+def test_session_post_of_non_finite_rows_leaves_it_refitting():
+    chunks = _stock_chunks(WC + 2, seed=5)
+    session = StreamSession("s", StreamConfig(d=D, chunk=CHUNK,
+                                              window_chunks=WC, fit=CFG),
+                            device="cpu")
+    twin = StreamSession("t", StreamConfig(d=D, chunk=CHUNK,
+                                           window_chunks=WC, fit=CFG),
+                         device="cpu")
+    for k, rows in enumerate(chunks):
+        if k == WC:
+            with pytest.raises(ValueError, match="non-finite"):
+                session.post(np.full_like(rows, np.nan))
+        session.post(rows)
+        twin.post(rows)
+    assert session.n_chunks == twin.n_chunks == WC + 2
+    session.refit_now()
+    twin.refit_now()
+    np.testing.assert_array_equal(session.last_fit.result.order.numpy(),
+                                  twin.last_fit.result.order.numpy())
+
+
 def test_rolling_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -431,9 +495,8 @@ def test_session_alert_makes_due_and_resets_cadence():
     assert list(session.alert_history) == ["drift"]
 
 
-def test_session_rejects_a_monitor():
-    """The session no longer rejects a monitor: ``StreamConfig(monitor=
-    ...)`` builds the port's drift monitor, which arms on the first fit
+def test_session_accepts_and_arms_a_monitor():
+    """``StreamConfig(monitor=...)`` builds the port's drift monitor, which arms on the first fit
     (the monitor's own checks are in tests/test_torch_monitor.py)."""
     session = StreamSession("s", StreamConfig(
         d=D, chunk=CHUNK, window_chunks=WC, fit=CFG,
