@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out-dir DIR]
+    python3 chip_smoke.py --offpath [--tree DIR] [--label L] [--fits N]
+                          [--refits N] [--swap-from DIR]
+
+The second form runs no check: it times only the telemetry-off
+``lingam-1m-100`` fits and stream refits of the port in ``--tree`` (see
+:func:`offpath_times`), to compare two commits on one card.
 
 Imports only ``repro_torch`` (from ``src/``), the port's benchmarks
 (``benchmarks/torch_*.py``), ``torch``, numpy and scipy. Phases, any
@@ -101,7 +107,32 @@ failure of which exits non-zero:
      fit's first step timed against its bound, a 64-row tile against
      float64; (e) VarLiNGAM on the 487-stock panel (Fig. 4): seconds,
      b0 precision and recall;
- 13. last line: {"ok": true, "device": {...}}.
+ 13. telemetry (run between phases 10 and 12, on their data): the
+     lingam-1m-100 fit ("none"), the rolling refit of the stream window,
+     the vmap bootstrap, the 11-request burst and flushes of 8 monitored
+     sessions, each with the port's telemetry off and on in turns; one
+     fit's span tree (one dispatch span per ordering step) and one flush
+     round's metrics snapshot; a launch's plan decision off and on;
+     ``profile.call``'s roofline row for B1 at (1e6, 100) against the
+     script's bound (one computation: ``profile.analytic_cost`` over the
+     card's peaks); ``python -m repro_torch.analysis.report --roofline``;
+     and a ``torch.profiler`` device trace of a (20,000, 100) fit with
+     the spans mirrored onto it, under ``--out-dir`` (default
+     ``smoke_out/``);
+ 14. the mesh plan: the 1 x 1 mesh at lingam-1m-100 ("staged") in this
+     process, bit-equal to the local plan, one B2 launch per ordering
+     step, timed against the local plan in one scope and once with its
+     world of one set up inside the call; the engine's mesh regime and
+     VarLiNGAM through a partition against ``fit_fn``; then four
+     processes sharing the card over gloo (``torchrun`` of
+     ``repro_torch.launch.mesh_cells``): if this build's gloo takes CUDA
+     tensors, 2 x 2 and 4 x 1 meshes at (256, 24), whose orders must be
+     the card's local plan's, and a 2 x 2 mesh at (20,000, 100), whose
+     order may part from it only where the two roots tie within the
+     kernel's fp32 tolerance; one B2 launch per step on each rank, the
+     adjacency within 1e-5 where the orders agree (else the gloo error
+     is printed);
+ 15. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -160,9 +191,6 @@ PEAK_MODEL_MARGIN = 1.5
 # over d terms with cancellation) are held to float64 within their
 # componentwise rounding bounds instead.
 ATOL_QUERY = 1e-5
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory rate
-SFU_OPS_PER_CLOCK_PER_SM = 16
-SFU_OPS_PER_TERM = 3  # ex2 (exp(-2|u|)), lg2 (log1p), ex2 (exp(-u^2/2))
 # Phase 12's speed-up grid: the reference's quick grid and this shape of
 # its full grid.
 SPEEDUP_WIDE = (10_000, 64)
@@ -247,15 +275,19 @@ def offdiag_err(a, b, row0=0):
                                - b.cpu().double().numpy())[mask]))
 
 
-def moment_bound_ms(rows, d, m, n_bytes, sms, clock_mhz):
-    """(bound, by operations, by bytes) in ms for the moment sums of a
-    (rows, d) pair tile over m samples: SFU_OPS_PER_TERM special-function
-    ops per (pair, sample) over the SMs' rate, against ``n_bytes`` (each
-    input read once, each output written once) over the memory rate."""
-    ops_ms = SFU_OPS_PER_TERM * rows * d * m / (
-        sms * SFU_OPS_PER_CLOCK_PER_SM * clock_mhz * 1e6) * 1e3
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+def moment_bound_ms(op, shape, peaks, **kw):
+    """(bound, by operations, by bytes) in ms of a moment op at ``shape``:
+    ``repro_torch.obs.profile.analytic_cost`` (3 special-function
+    operations a (pair, sample) term; each input read once, each output
+    written once) against the card's ``peaks`` (SMs x 16 a clock x the SM
+    clock; the memory rate), through ``profile.roofline_bound``: the one
+    computation the profiler's roofline rows use."""
+    from repro_torch.obs import profile
+
+    cost = profile.analytic_cost(op, shape, **kw)
+    b = profile.roofline_bound(cost["flops"], cost["bytes"], peaks,
+                               cost["unit"])
+    return b["bound_s"] * 1e3, b["compute_s"] * 1e3, b["memory_s"] * 1e3
 
 
 def walk_against_plain(x, kernel, plain, atol, x_plain=None):
@@ -348,7 +380,7 @@ def order_consistent(order, b_true) -> bool:
     return bool(np.all(pos[dst] < pos[src]))
 
 
-def paper_experiments(dev, cuda_ms, sms, clock_mhz):
+def paper_experiments(dev, cuda_ms, peaks):
     """Phase 12, the paper's experiments (section 3.1, Fig. 2 and 3,
     Table 1, section 4.2) through the port's benchmarks, all on ``dev``.
     Their B1 launches are counted over the phase, less the gene-shape
@@ -492,9 +524,7 @@ def paper_experiments(dev, cuda_ms, sms, clock_mhz):
     gene_err = max(offdiag_err(g1[:64], q1 / m_g),
                    offdiag_err(g2[:64], q2 / m_g))
     gene_ms = cuda_ms(lambda: ops.pairwise_moments(xs_g, c_g), 5)
-    gene_bound = moment_bound_ms(d_g, d_g, m_g,
-                                 4 * (m_g * d_g + 3 * d_g * d_g), sms,
-                                 clock_mhz)
+    gene_bound = moment_bound_ms("pairwise_moments", (m_g, d_g), peaks)
     print(f"B1 at the gene fit's first step ({m_g}, {d_g}): {gene_ms:.3f} ms "
           f"(median of 5, CUDA events), bound {gene_bound[0]:.3f} ms "
           f"(special-function ops {gene_bound[1]:.3f}, bytes "
@@ -525,13 +555,619 @@ def paper_experiments(dev, cuda_ms, sms, clock_mhz):
             gene_err)
 
 
-def main() -> int:
+def timed(fn):
+    """(host seconds from a synchronized start to the end of the card's
+    work, ``fn()``): the one clock of this script's wall times (phases 6,
+    8 and 13, and ``--offpath``)."""
     import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def alternate(fn, n):
+    """Run ``fn`` 2n times with the port's telemetry off and on in turns
+    (off, on, on, off, ...): {"off": [s, ...], "on": [s, ...]}, each
+    :func:`timed`."""
+    from repro_torch import obs
+
+    out = {"off": [], "on": []}
+    for i in range(n):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            obs.enable(on)
+            out["on" if on else "off"].append(timed(fn)[0])
+    obs.disable()
+    return out
+
+
+def count_calls(fn):
+    """Python function calls and C calls made while ``fn`` runs once, in
+    all and within ``repro_torch``: what the host does for it, counted."""
+    counts = {"all": 0, "repro_torch": 0}
+
+    def tally(frame, event, arg):
+        if event in ("call", "c_call"):
+            counts["all"] += 1
+            if (event == "call" and f"{os.sep}repro_torch{os.sep}"
+                    in frame.f_code.co_filename):
+                counts["repro_torch"] += 1
+
+    sys.setprofile(tally)
+    try:
+        fn()
+    finally:
+        sys.setprofile(None)
+    return counts
+
+
+# The modules a stream refit runs through, for ``--offpath --swap-from``.
+REFIT_MODULES = ("repro_torch.core.api", "repro_torch.core.ordering",
+                 "repro_torch.core.pruning", "repro_torch.kernels.ops",
+                 "repro_torch.kernels.pairwise_stats",
+                 "repro_torch.kernels.tune.registry",
+                 "repro_torch.stream.stats", "repro_torch.stream.window",
+                 "repro_torch.stream.session")
+
+
+def swapped_functions(tree, modules):
+    """Every top-level function and method of ``modules`` whose code in
+    ``tree``'s copy differs from the imported port's, compiled from
+    ``tree``'s source against the imported module's globals: a list of
+    (owner, name, the port's version, ``tree``'s version), ``owner`` a
+    module or a class. Calls among swapped functions reach ``tree``'s
+    versions; everything else stays the port's."""
+    import __future__
+    import ast
+    import importlib
+
+    out = []
+    for name in modules:
+        mod = importlib.import_module(name)
+        path = os.path.join(tree, "src", *name.split(".")) + ".py"
+        with open(path) as f:
+            theirs_tree = ast.parse(f.read())
+        with open(mod.__file__) as f:
+            ours_tree = ast.parse(f.read())
+
+        def defs(body):
+            return {n.name: n for n in body if isinstance(
+                n, (ast.FunctionDef, ast.ClassDef))}
+
+        theirs, ours = defs(theirs_tree.body), defs(ours_tree.body)
+        picked = []  # (owner, name, node)
+        for fname, node in theirs.items():
+            mine = ours.get(fname)
+            if mine is None or type(mine) is not type(node):
+                continue
+            if isinstance(node, ast.FunctionDef):
+                if ast.dump(node) != ast.dump(mine):
+                    picked.append((mod, fname, node))
+                continue
+            cls, mine_m = getattr(mod, fname), defs(mine.body)
+            for mname, mnode in defs(node.body).items():
+                if (isinstance(mnode, ast.FunctionDef) and mname in mine_m
+                        and ast.dump(mnode) != ast.dump(mine_m[mname])):
+                    picked.append((cls, mname, mnode))
+        # One namespace for the module's functions, one for each class's
+        # methods, so that a method never shadows a function of its name.
+        for owner in {id(o): o for o, _, _ in picked}.values():
+            nodes = [(f, n) for o, f, n in picked if o is owner]
+            ns = dict(vars(mod))
+            exec(compile(ast.Module(body=[n for _, n in nodes],
+                                    type_ignores=[]), path, "exec",
+                         flags=__future__.annotations.compiler_flag,
+                         dont_inherit=True), ns)
+            out += [(owner, f, getattr(owner, f), ns[f]) for f, _ in nodes]
+    return out
+
+
+def offpath_times(tree, label, n_fits, n_refits, swap_from=None):
+    """``--offpath``: only the telemetry-off main-path times of the port in
+    ``tree`` (a checkout whose ``src/`` is imported: this one, or an
+    unpacked ``git archive`` of another commit), to compare two commits
+    in turns on one card. After a warm-up fit, ``n_fits`` fits of
+    ``lingam-1m-100`` with compaction "none" and "staged"; after a warm-up
+    refit, ``n_refits`` refits of a full ``varlingam-stream-487`` window,
+    each with its host CPU seconds; then the Python calls of one refit.
+    With ``swap_from`` (another checkout), the same refit again in one
+    process, in turns (this, swapped, swapped, this, ...) ``n_refits``
+    times each: as it is, and with every function and method of
+    :data:`REFIT_MODULES` whose code differs in ``swap_from`` replaced by
+    that checkout's version, the Python calls of each counted. Prints
+    one JSON line."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import torch
+
+    import repro_torch
+    from repro_torch.configs.lingam_workloads import (STREAM_WORKLOADS,
+                                                      WORKLOADS)
+    from repro_torch.core import DirectLiNGAM
+    from repro_torch.data.simulate import simulate_lingam, simulate_var_stocks
+    from repro_torch.stream import StreamConfig, StreamSession
+
+    if not os.path.abspath(repro_torch.__file__).startswith(tree + os.sep):
+        fail(f"imported {repro_torch.__file__}, not the port in {tree}")
+    wl = WORKLOADS["lingam-1m-100"]
+    gt = simulate_lingam(m=wl.m, d=wl.d, seed=0)
+    DirectLiNGAM(compaction="none").fit(gt.data)  # builds the kernels
+    fits = {c: [timed(lambda: DirectLiNGAM(compaction=c).fit(gt.data))[0]
+                for _ in range(n_fits)] for c in ("none", "staged")}
+    del gt
+    sw = STREAM_WORKLOADS["varlingam-stream-487"]
+    series = simulate_var_stocks(m=sw.chunk * sw.window_chunks + 8, d=sw.d,
+                                 seed=0)[0]
+    session = StreamSession("offpath", StreamConfig(
+        d=sw.d, chunk=sw.chunk, window_chunks=sw.window_chunks, lags=sw.lags,
+        refit_every=sw.refit_every))
+    for k in range(sw.window_chunks):
+        session.post(series[k * sw.chunk:(k + 1) * sw.chunk])
+    session.rolling.refit()  # warm
+    refits, refit_cpu = [], []
+    for _ in range(n_refits):
+        c0 = time.process_time()
+        refits.append(timed(session.rolling.refit)[0])
+        refit_cpu.append(time.process_time() - c0)
+    calls = count_calls(session.rolling.refit)
+    ab = None
+    if swap_from:
+        swaps = swapped_functions(os.path.abspath(swap_from), REFIT_MODULES)
+
+        def use(theirs):
+            for owner, fname, mine, other in swaps:
+                setattr(owner, fname, other if theirs else mine)
+
+        ab = {"swapped": sorted(f"{getattr(o, '__name__', o)}.{f}"
+                                for o, f, _, _ in swaps),
+              "this_s": [], "swapped_s": []}
+        for i in range(n_refits):
+            for theirs in ((False, True) if i % 2 == 0 else (True, False)):
+                use(theirs)
+                ab["swapped_s" if theirs else "this_s"].append(
+                    timed(session.rolling.refit)[0])
+        use(True)
+        ab["swapped_calls"] = count_calls(session.rolling.refit)
+        use(False)
+        ab["this_calls"] = count_calls(session.rolling.refit)
+        ab["medians"] = {k: float(np.median(ab[k]))
+                         for k in ("this_s", "swapped_s")}
+    print(json.dumps({
+        "label": label, "tree": tree, "card": smi("name,power.limit"),
+        "fit_none_s": fits["none"], "fit_staged_s": fits["staged"],
+        "refit_s": refits, "refit_cpu_s": refit_cpu,
+        "refit_calls": calls, "swap": ab,
+        "medians": {k: float(np.median(v)) for k, v in (
+            ("fit_none_s", fits["none"]), ("fit_staged_s", fits["staged"]),
+            ("refit_s", refits), ("refit_cpu_s", refit_cpu))},
+    }), flush=True)
+    return 0
+
+
+def condensed_tree(span, indent=0, lines=None):
+    """One span tree as text, runs of same-named siblings folded into one
+    line with their count and total time."""
+    lines = [] if lines is None else lines
+    tag = "  [trace]" if span.traced else ""
+    lines.append(f"{'  ' * indent}{span.name}  {span.duration_s * 1e3:.2f} "
+                 f"ms{tag}  {span.attrs}")
+    kids, k = span.children, 0
+    while k < len(kids):
+        j = k
+        while j + 1 < len(kids) and kids[j + 1].name == kids[k].name:
+            j += 1
+        if j > k:
+            total = sum(c.duration_s for c in kids[k:j + 1]) * 1e3
+            lines.append(f"{'  ' * (indent + 1)}{kids[k].name}  x{j - k + 1}"
+                         f", {total:.2f} ms in all")
+        else:
+            condensed_tree(kids[k], indent + 1, lines)
+        k = j + 1
+    return lines
+
+
+def telemetry_phase(dev, peaks, gt, gt_b, boot_kw, reqs, series, stream_cfg,
+                    sw, out_dir):
+    """Phase 13: the main paths' times with the port's telemetry off and
+    on in one process, one fit's span tree, a flush's metrics snapshot,
+    B1's roofline row from ``profile.call``, ``analysis.report
+    --roofline`` and a device trace. Returns the numbers as a dict."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import DirectLiNGAM, api, bootstrap
+    from repro_torch.kernels import ops, pairwise_stats
+    from repro_torch.kernels.tune import registry as tune_registry
+    from repro_torch.obs import metrics, profile
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.stream import StreamConfig, StreamSession
+
+    res = {}
+    obs.reset_all()
+    # (a) the lingam-1m-100 fit, compaction "none"
+    trees = []
+
+    def fit_none():
+        DirectLiNGAM(compaction="none").fit(gt.data)
+        if obs.enabled():
+            trees.append(obs.roots(last=1)[0])
+
+    res["fit_none_s"] = alternate(fit_none, 2)
+    tree = condensed_tree(trees[0])
+    with open(os.path.join(out_dir, "phase13_fit_span_tree.txt"), "w") as f:
+        f.write(obs.format_tree(last=1) + "\n")
+    print("phase 13: span tree of one lingam-1m-100 fit (telemetry on; "
+          "runs of one name folded):\n" + "\n".join(tree))
+    n_dispatch = sum(c.name == "kernels.dispatch"
+                     for s in trees[0].children for c in s.children)
+    if trees[0].name != "fit.local" or n_dispatch != gt.data.shape[1]:
+        fail(f"the fit's span tree is not fit.local with one dispatch span "
+             f"per ordering step: {trees[0].name}, {n_dispatch}")
+    # (b) the rolling refit of varlingam-stream-487's last window
+    session = StreamSession("phase13", StreamConfig(
+        d=sw.d, chunk=sw.chunk, window_chunks=sw.window_chunks, lags=sw.lags,
+        refit_every=sw.refit_every))
+    for k in range(sw.window_chunks):
+        session.post(series[0][k * sw.chunk:(k + 1) * sw.chunk])
+    session.rolling.refit()  # warm
+    res["refit_s"] = alternate(session.rolling.refit, 3)
+    del session
+    # (c) the vmap bootstrap (32 resamples at (4000, 487))
+    res["bootstrap_vmap_s"] = alternate(lambda: bootstrap.bootstrap_lingam(
+        gt_b.data, strategy="vmap", **boot_kw), 1)
+    # (d) the 11-request burst through a fresh engine
+    eng = serve_engine.CausalDiscoveryEngine(
+        api.FitConfig(compaction="staged"), batch_size=8)
+    res["burst_s"] = alternate(lambda: eng.run(reqs), 2)
+    # (e) flushes of 8 monitored sessions, telemetry off and on by round
+    eng = serve_engine.CausalDiscoveryEngine(
+        api.FitConfig(compaction="staged"), batch_size=8)
+    sids = [eng.open_stream(stream_cfg) for _ in series]
+    flushes = []
+    real_flush = eng.flush_streams
+
+    def timed_flush():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_flush()
+        torch.cuda.synchronize()
+        flushes.append((len(out), obs.enabled(), time.perf_counter() - t0))
+        return out
+
+    eng.flush_streams = timed_flush
+    n_chunks = len(series[0]) // sw.chunk
+    snap = None
+    for k in range(n_chunks):
+        on = k >= sw.window_chunks and (k - sw.window_chunks) % 2 == 0
+        obs.enable(on)
+        if on:
+            metrics.reset()
+        for s, sid in enumerate(sids):
+            eng.post_chunk(sid, series[s][k * sw.chunk:(k + 1) * sw.chunk])
+        if on and snap is None:
+            snap = metrics.snapshot()
+    obs.disable()
+    full = [f for f in flushes if f[0] == len(sids)]
+    res["flush8_s"] = {"off": [f[2] for f in full if not f[1]],
+                       "on": [f[2] for f in full if f[1]]}
+    del eng
+    with open(os.path.join(out_dir, "phase13_flush_metrics.json"),
+              "w") as f:
+        json.dump(snap, f, indent=1, sort_keys=True)
+    print("phase 13: metrics snapshot of one flush round of 8 sessions "
+          "(telemetry on): " + json.dumps(
+              {kind: {k: v for k, v in sorted(series_.items())
+                      if "sid=" not in k or 'sid="stream-0"' in k}
+               for kind, series_ in snap.items()}, sort_keys=True))
+    if not snap["counters"].get("serve.flushes"):
+        fail("the flush recorded no serve.flushes counter")
+    # (f) one launch's plan decision, off and on
+    shape = (sw.chunk * sw.window_chunks, sw.d)
+    for on in (False, True):
+        obs.enable(on)
+        t0 = time.perf_counter()
+        for _ in range(10_000):
+            tune_registry.dispatch("pairwise_moment_sums_chunked", shape,
+                                   chunk=sw.chunk, batch=8, device=dev)
+        res[f"dispatch_us_{'on' if on else 'off'}"] = (
+            (time.perf_counter() - t0) / 10_000 * 1e6)
+    obs.disable()
+    obs.reset_all()
+    for key in ("fit_none_s", "refit_s", "bootstrap_vmap_s", "burst_s",
+                "flush8_s"):
+        t = res[key]
+        print(f"phase 13: {key} telemetry off "
+              + ", ".join(f"{v:.3f}" for v in t["off"]) + " s; on "
+              + ", ".join(f"{v:.3f}" for v in t["on"]) + " s; medians "
+              f"{np.median(t['off']):.3f} / {np.median(t['on']):.3f} s")
+        if not (t["off"] and t["on"]):
+            fail(f"phase 13: {key} lacks an off or an on run")
+    print(f"phase 13: one launch's plan decision (a table hit) "
+          f"{res['dispatch_us_off']:.2f} us off, {res['dispatch_us_on']:.2f} "
+          f"us on (mean of 10,000)")
+
+    # (g) B1's roofline row from profile.call at (1e6, 100)
+    m, d = gt.data.shape
+    x = torch.from_numpy(np.ascontiguousarray(gt.data, np.float32)).to(dev)
+    x_std = ops.standardize(x).contiguous()
+    c = ops.correlation(x_std).contiguous()
+    del x
+    profile.enable()
+    before = pairwise_stats.launches
+    for _ in range(5):
+        profile.call(ops.pairwise_moments, x_std, c, op="pairwise_moments",
+                     shape=(m, d))
+    row = profile.get("pairwise_moments", (m, d)).row(peaks)
+    profile.disable()
+    profile.reset()
+    bound = moment_bound_ms("pairwise_moments", (m, d), peaks)
+    row_bound_ms = row["best_s"] * row["roofline_frac"] * 1e3
+    res["b1_row"] = row
+    print(f"phase 13: profile.call row for B1 at ({m}, {d}): best "
+          f"{row['best_s'] * 1e3:.3f} ms of {row['calls']} calls, "
+          f"{row['gflops_per_s']:.1f} G special-function op/s, "
+          f"{row['roofline_frac']:.1%} of the roofline ({row['bound']}-"
+          f"bound, bound {row_bound_ms:.3f} ms; the script's bound "
+          f"{bound[0]:.3f} ms; PERF.md's 7.17 ms), device high-water "
+          f"{row['temp_bytes'] / 2**20:.1f} MiB above the call's start")
+    if pairwise_stats.launches - before != 5 or abs(
+            row_bound_ms - bound[0]) > 1e-6 * bound[0]:
+        fail("profile.call's B1 row disagrees with the script's bound")
+    del x_std, c
+
+    # (h) the report, as a user runs it
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.report", "--roofline",
+         "--out", os.path.join(out_dir, "report_roofline.json")],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
+    print(f"phase 13: python -m repro_torch.analysis.report --roofline "
+          f"(exit {rep.returncode}, {time.perf_counter() - t0:.1f} s):\n"
+          + rep.stdout[-3000:])
+    if rep.returncode != 0:
+        fail(f"analysis.report --roofline failed: {rep.stderr[-2000:]}")
+
+    # (i) a device trace of one fit at (20,000, 100) with the spans on it
+    x_mid = torch.from_numpy(np.ascontiguousarray(reqs[-1].data)).to(dev)
+    trace_dir = os.path.join(out_dir, "phase13_device_trace")
+    obs.enable()
+    profile.enable()
+    with profile.device_trace(trace_dir):
+        api.fit_fn(x_mid, api.FitConfig(compaction="staged")).order.cpu()
+    profile.disable()
+    obs.disable()
+    obs.reset_all()
+    with open(os.path.join(trace_dir, "device_trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    n_kernels = sum(e.get("cat") == "kernel" and "pair_partials"
+                    in e.get("name", "") for e in events)
+    n_spans = sum(e.get("name") in ("fit.local", "fit.ordering",
+                                    "fit.pruning", "kernels.dispatch")
+                  for e in events)
+    res["trace_kernels"], res["trace_spans"] = n_kernels, n_spans
+    print(f"phase 13: device trace {trace_dir}/device_trace.json: "
+          f"{len(events)} events, {n_kernels} pair_partials kernels, "
+          f"{n_spans} mirrored spans")
+    if not n_spans:
+        fail("the device trace holds none of the fit's spans")
+    return res
+
+
+# The four ranks' cells (repro_torch.launch.mesh_cells): the reference's
+# (256, 24) over 2 x 2 (both compactions) and 4 x 1, and a 2 x 2 mesh at
+# (20,000, 100), each timed after a warm-up.
+MESH_RANK_CELLS = [
+    dict(key=f"{m}x{d}/{comp}/{tag}", kind="fit", m=m, d=d, seed=0,
+         config=dict(compaction=comp), timed=True,
+         partition=dict(mesh=mesh, chunk=chunk))
+    for m, d, comp, tag, mesh, chunk in (
+        (256, 24, "none", "2x2", (("data", 2), ("model", 2)), 64),
+        (256, 24, "staged", "2x2", (("data", 2), ("model", 2)), 64),
+        (256, 24, "staged", "4x1", (("data", 4), ("model", 1)), 64),
+        (20_000, 100, "staged", "2x2", (("data", 2), ("model", 2)), 512))
+]
+
+
+def mesh_phase(dev, gt, out_dir):
+    """Phase 14: the mesh plan on the card. The 1 x 1 mesh at
+    lingam-1m-100 ("staged") bit-equal to the local plan and timed against
+    it; the engine's mesh regime and VarLiNGAM through a partition; a
+    2 x 2 (and 4 x 1) mesh as four processes sharing the card over gloo,
+    if this build's gloo takes CUDA tensors. Returns the numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import VarLiNGAM, api
+    from repro_torch.data.simulate import simulate_lingam, simulate_var_stocks
+    from repro_torch.kernels import pairwise_stats
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.serve import engine as serve_engine
+
+    res = {}
+    x = torch.from_numpy(np.ascontiguousarray(gt.data, np.float32)).to(dev)
+    local_cfg = api.FitConfig(compaction="staged")
+    part = api.Partition()  # 1 x 1, chunk 512
+    mesh_cfg = dataclasses.replace(local_cfg, partition=part)
+
+    def run(cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = api.fit_fn(x, cfg)
+        fit.order.cpu()
+        return fit, time.perf_counter() - t0
+
+    local, _ = run(local_cfg)  # warm
+    # One call as a user makes it: the world of one set up and torn down
+    # inside the fit.
+    pairwise_stats.launches = pairwise_stats.rows_launches = 0
+    mesh, once_s = run(mesh_cfg)
+    res["mesh_b1"], res["mesh_b2"] = (pairwise_stats.launches,
+                                      pairwise_stats.rows_launches)
+    if dist.is_initialized():
+        fail("the 1 x 1 mesh left its process group behind")
+    times = {"local": [], "mesh": []}
+    with launch_mesh.mesh_scope(part.mesh, dev.type):
+        for which in ("local", "mesh", "mesh", "local"):
+            fit, dt = run(mesh_cfg if which == "mesh" else local_cfg)
+            times[which].append(dt)
+            for a, b in zip(fit.to_numpy(), local.to_numpy()):
+                if not np.array_equal(a, b):
+                    fail(f"the 1 x 1 mesh fit ({which}) is not bit-equal to "
+                         f"the local plan")
+    same = all(np.array_equal(a, b)
+               for a, b in zip(mesh.to_numpy(), local.to_numpy()))
+    res.update(once_s=once_s, times=times, bit_equal=same)
+    print(f"phase 14: 1 x 1 mesh at lingam-1m-100 (staged): leaves bit-equal "
+          f"to the local plan {same}; B2 launches {res['mesh_b2']} (one per "
+          f"ordering step), B1 launches {res['mesh_b1']}; one call with its "
+          f"world of one {once_s:.3f} s; in one scope local "
+          + ", ".join(f"{t:.3f}" for t in times["local"]) + " s, mesh "
+          + ", ".join(f"{t:.3f}" for t in times["mesh"]) + " s")
+    if not same or res["mesh_b2"] != gt.data.shape[1] or res["mesh_b1"]:
+        fail("the 1 x 1 mesh fit is not the local plan's, or not one B2 "
+             "launch per step")
+    del x, local, mesh
+
+    # the engine's mesh regime and VarLiNGAM through a partition
+    cfg = api.FitConfig(compaction="staged", partition=api.Partition(
+        chunk=64))
+    datasets = [simulate_lingam(m=256, d=12, seed=s).data for s in range(3)]
+    eng = serve_engine.CausalDiscoveryEngine(cfg)
+    for r, data in zip(eng.run([serve_engine.FitRequest(data=d_)
+                                for d_ in datasets]), datasets):
+        direct = api.fit_fn(torch.from_numpy(np.ascontiguousarray(
+            data, np.float32)).to(dev), cfg).to_numpy()
+        for a, b in zip((r.result.order, r.result.adjacency,
+                         r.result.resid_var), direct):
+            if not np.array_equal(a, b):
+                fail("the engine's mesh regime differs from fit_fn")
+    xv, b0, _ = simulate_var_stocks(m=2000, d=10, edge_prob=0.2, seed=0)
+    v = VarLiNGAM(lags=1, prune_threshold=0.1, compaction="staged",
+                  partition=cfg.partition).fit(xv)
+    direct = api.fit_fn(torch.from_numpy(v.residuals_).to(dev),
+                        v.to_config())
+    tp = int(((b0 != 0) & (np.abs(v.adjacency_matrices_[0]) > 0.1)).sum())
+    routed = (np.array_equal(v.causal_order_, direct.order.cpu().numpy())
+              and np.array_equal(v.adjacency_matrices_[0],
+                                 direct.adjacency.cpu().numpy()))
+    print(f"phase 14: engine mesh regime (3 requests at (256, 12)) equal to "
+          f"fit_fn; VarLiNGAM through a 1 x 1 partition equal to fit_fn on "
+          f"its residuals {routed}, {tp} of {(b0 != 0).sum()} true edges")
+    if not routed or tp < 0.6 * (b0 != 0).sum():
+        fail("VarLiNGAM through a partition is not the mesh plan's fit")
+
+    # four processes sharing the card over gloo
+    from repro_torch.core import ordering
+    from repro_torch.launch import mesh_cells
+
+    rank_dir = tempfile.mkdtemp(prefix="repro-torch-mesh-")
+    t0 = time.perf_counter()
+    try:
+        proc, reports, got = mesh_cells.launch(
+            MESH_RANK_CELLS, rank_dir, nproc=4, device="cuda",
+            backend="gloo", timeout=600)
+    except RuntimeError as e:
+        fail(str(e))
+    finally:
+        shutil.rmtree(rank_dir)
+    ranks_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "phase14_ranks.log"), "w") as f:
+        f.write(proc.stdout + "\n----\n" + proc.stderr)
+    res["gloo_cuda"] = reports[0]["collectives"]
+    if res["gloo_cuda"] != "ok":
+        print(f"phase 14: four ranks on one card over gloo: this build's "
+              f"gloo does not take CUDA tensors ({res['gloo_cuda']}); the "
+              f"2 x 2 mesh was not run on the card ({ranks_s:.1f} s)")
+        return res
+    for r in range(1, 4):
+        for k, v_ in got[0].items():
+            if not np.array_equal(got[r][k], v_):
+                fail(f"mesh rank {r} holds another {k} than rank 0")
+    res["ranks"] = {}
+    for cell in MESH_RANK_CELLS:
+        key, m, d = cell["key"], cell["m"], cell["d"]
+        comp, mesh_tag = cell["config"]["compaction"], key.rsplit("/", 1)[1]
+        xl = torch.from_numpy(np.ascontiguousarray(
+            simulate_lingam(m=m, d=d, seed=0).data, np.float32)).to(dev)
+        t0 = time.perf_counter()
+        want = api.fit_fn(xl, api.FitConfig(compaction=comp)).to_numpy()
+        local_s = time.perf_counter() - t0
+        leaves = [got[0][f"{key}/{n}"]
+                  for n in ("order", "adjacency", "resid_var")]
+        equal = all(np.array_equal(a, b) for a, b in zip(leaves, want))
+        same_order = np.array_equal(leaves[0], want[0])
+        adj_err = (float(np.abs(leaves[1] - want[1]).max()) if same_order
+                   else None)
+        # At m = 256 the order is the local plan's on every mesh (the
+        # CPU tests pin it); where a longer fit's order parts (shards that
+        # group the 128-sample sub-sums otherwise), the two roots must
+        # tie at the first parting within the kernel's fp32 tolerance.
+        part_at = tie = None
+        if not same_order:
+            if m == 256:
+                fail(f"{key}: the mesh order is not the local plan's")
+            part_at, tie = parting_tie(xl, want[0], leaves[0],
+                                       ordering.LocalReducer(), ATOL_F32)
+        ranks_b2 = [rep[key]["b2"] for rep in reports]
+        res["ranks"][key] = {"s": [rep[key]["s"] for rep in reports],
+                             "b2": ranks_b2, "bit_equal": equal,
+                             "same_order": same_order, "adj_err": adj_err,
+                             "parting_position": part_at,
+                             "parting_tie_ratio": tie, "local_s": local_s}
+        print(f"phase 14: {mesh_tag} mesh over gloo, four processes on one "
+              f"card, {m}x{d} {comp}: leaves bit-equal to the card's local "
+              f"plan {equal}, orders equal {same_order}"
+              + ("" if same_order else
+                 f" (parting at position {part_at}, score gap {tie:.3f} of "
+                 f"the tolerance)")
+              + f", adjacency max diff {adj_err}; mesh fit "
+              f"{max(res['ranks'][key]['s']):.3f} s (slowest rank) against "
+              f"the local {local_s:.3f} s; B2 launches per rank {ranks_b2}")
+        if any(b != d for b in ranks_b2) or any(rep[key]["b1"]
+                                                for rep in reports):
+            fail(f"{key}: not one B2 launch per ordering step on each rank")
+        # The pruning's batched row solves may round otherwise on the card.
+        if same_order and adj_err > ATOL_ADJ:
+            fail(f"{key}: the mesh fit's adjacency disagrees with the "
+                 f"local plan")
+    print(f"phase 14: four ranks in {ranks_s:.1f} s in all")
+    return res
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out-dir", default=os.path.join(ROOT, "smoke_out"),
+                    help="where phases 13 and 14 write their files (the "
+                         "device trace, the report, the span tree)")
+    ap.add_argument("--offpath", action="store_true",
+                    help="time only the telemetry-off lingam-1m-100 fits "
+                         "and stream refits (no checks, no other phase)")
+    ap.add_argument("--tree", default=ROOT,
+                    help="with --offpath: the checkout whose src/ to time")
+    ap.add_argument("--label", default="",
+                    help="with --offpath: a label for the JSON line")
+    ap.add_argument("--fits", type=int, default=3,
+                    help="with --offpath: fits per compaction")
+    ap.add_argument("--refits", type=int, default=30,
+                    help="with --offpath: timed refits")
+    ap.add_argument("--swap-from", default=None,
+                    help="with --offpath: also time the refit in turns with "
+                         "the functions that differ in this checkout")
+    args = ap.parse_args()
+    out_dir = os.path.abspath(args.out_dir)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
               file=sys.stderr)
         return 1
+    if args.offpath:
+        return offpath_times(args.tree, args.label, args.fits, args.refits,
+                             args.swap_from)
 
     from concurrent.futures import ThreadPoolExecutor
 
@@ -548,6 +1184,7 @@ def main() -> int:
     from repro_torch.kernels.tune import autotune
     from repro_torch.kernels.tune import cache as tune_cache
     from repro_torch.kernels.tune import registry as tune_registry
+    from repro_torch.obs import profile as obs_profile
     from repro_torch.serve import engine as serve_engine
     from repro_torch.stream import (MonitorConfig, StreamConfig,
                                     StreamSession, stats, window)
@@ -577,6 +1214,16 @@ def main() -> int:
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"SMs: {sms}, max SM clock: {clock_mhz} MHz")
+    # The roofline ceilings every bound below is held to: the profiler's
+    # own reading of the card, which must be the one this script reads.
+    peaks = obs_profile.device_peaks()
+    if peaks != obs_profile.device_peaks(torch.cuda.get_device_name(0),
+                                         sms=sms, clock_mhz=clock_mhz):
+        fail(f"the profiler's peaks {peaks} are not this card's")
+    b1_bound = moment_bound_ms("pairwise_moments", (1_000_000, 100), peaks)
+    print(f"peaks: {peaks}; B1's bound at (1e6, 100) {b1_bound[0]:.3f} ms "
+          f"(special-function ops {b1_bound[1]:.3f} ms, bytes "
+          f"{b1_bound[2]:.3f} ms)")
     sources = ("pairwise_moments", "fused_moments")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
@@ -644,10 +1291,8 @@ def main() -> int:
     kernel_ms = cuda_ms(lambda: ops.pairwise_moments(x_std, c), 10)
     plain_ms = cuda_ms(
         lambda: pairwise_stats.pairwise_moment_sums_plain(x_std, c), 2)
-    ops_ms = SFU_OPS_PER_TERM * d * d * m / (
-        sms * SFU_OPS_PER_CLOCK_PER_SM * clock_mhz * 1e6) * 1e3
-    bytes_ms = 4 * (m * d + d * d + 2 * d * d) / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    bound_ms, ops_ms, bytes_ms = moment_bound_ms("pairwise_moments", (m, d),
+                                                 peaks)
     print(f"kernel at (m={m}, d={d}): {kernel_ms:.3f} ms per launch "
           f"(median of 10, CUDA events); plain version {plain_ms:.1f} ms; "
           f"bound {bound_ms:.3f} ms (special-function ops {ops_ms:.3f} ms, "
@@ -683,9 +1328,7 @@ def main() -> int:
     var_b1_ms = cuda_ms(lambda: ops.pairwise_moments(xv_std, cv), 20)
     var_b1_plain_ms = cuda_ms(
         lambda: pairwise_stats.pairwise_moment_sums_plain(xv_std, cv), 3)
-    var_b1_bound = moment_bound_ms(487, 487, 3999,
-                                   4 * (3999 * 487 + 3 * 487 * 487), sms,
-                                   clock_mhz)
+    var_b1_bound = moment_bound_ms("pairwise_moments", (3999, 487), peaks)
     print(f"B1 at the VarLiNGAM shape (m=3999, d=487): {var_b1_ms:.4f} ms per "
           f"launch (median of 20, CUDA events); plain version "
           f"{var_b1_plain_ms:.2f} ms; bound {var_b1_bound[0]:.4f} ms "
@@ -795,11 +1438,10 @@ def main() -> int:
             pairwise_stats.pairwise_moment_sums_plain(xw[k0:k0 + sw.chunk], cw)
 
     step_plain_ms = cuda_ms(per_slab_plain, 3)
-    rows_bound = moment_bound_ms(
-        d_w, d_w, sw.chunk, 4 * (sw.chunk * d_w + 3 * d_w * d_w), sms,
-        clock_mhz)
-    step_bound = moment_bound_ms(
-        d_w, d_w, m_w, 4 * (m_w * d_w + 3 * d_w * d_w), sms, clock_mhz)
+    rows_bound = moment_bound_ms("pairwise_moment_sums_rows",
+                                 (d_w, d_w, sw.chunk), peaks)
+    step_bound = moment_bound_ms("pairwise_moment_sums_chunked", (m_w, d_w),
+                                 peaks)
     print(f"B2 one ordering step at (m={m_w}, d={d_w}) in {n_slabs} slabs: "
           f"{step_ms:.4f} ms per launch (median of 50, CUDA events); the "
           f"same sums as {n_slabs} per-slab launches {per_slab_ms:.4f} ms; "
@@ -861,9 +1503,8 @@ def main() -> int:
         ms = cuda_ms(
             lambda: fused_stats.fused_moment_sums(xr, mu_full, rstd_full, c,
                                                   0, d), 10)
-        bound = moment_bound_ms(
-            d, d, m, xr.element_size() * m * d + 4 * (2 * d + 3 * d * d),
-            sms, clock_mhz)
+        bound = moment_bound_ms("fused_moment_sums", (d, d, m), peaks,
+                                itemsize=xr.element_size())
         print(f"B3 at (m={m}, d={d}, tile={d}), {label} X: {ms:.3f} ms per "
               f"launch (median of 10, CUDA events); bound {bound[0]:.3f} ms "
               f"(special-function ops {bound[1]:.3f} ms, bytes "
@@ -962,10 +1603,8 @@ def main() -> int:
     fits = {}
     for compaction in ("none", "staged"):
         pairwise_stats.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model = DirectLiNGAM(compaction=compaction).fit(gt.data)
-        fit_s = time.perf_counter() - t0
+        fit_s, model = timed(
+            lambda: DirectLiNGAM(compaction=compaction).fit(gt.data))
         n_launch = pairwise_stats.launches
         consistent = order_consistent(model.causal_order_, gt.adjacency)
         finite = bool(np.isfinite(model.adjacency_).all()
@@ -1101,13 +1740,7 @@ def main() -> int:
     # The tracer roughly doubles a refit's wall time, so the idle share is
     # 1 - busy / the untraced median; the traced reading is printed too. A
     # refit leaves the window's state as it is.
-    refit_walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        session.rolling.refit()
-        torch.cuda.synchronize()
-        refit_walls.append(time.perf_counter() - t0)
+    refit_walls = [timed(session.rolling.refit)[0] for _ in range(3)]
     refit_wall = float(np.median(refit_walls))
     prof_wall, prof_busy, prof_kernels = device_busy(session.rolling.refit)
     if prof_busy is None:
@@ -1495,9 +2128,8 @@ def main() -> int:
     batched_ms = cuda_ms(lambda: ops.pairwise_moments(xs_b, c_b), 10)
     singles_ms = cuda_ms(lambda: [ops.pairwise_moments(xs_b[k], c_b[k])
                                   for k in range(n_boot)], 5)
-    batched_bound = moment_bound_ms(
-        d_b, d_b, m_b * n_boot,
-        4 * n_boot * (m_b * d_b + 3 * d_b * d_b), sms, clock_mhz)
+    batched_bound = moment_bound_ms("pairwise_moments", (n_boot, m_b, d_b),
+                                    peaks)
     print(f"B1 batched at ({n_boot}, {m_b}, {d_b}): {batched_ms:.3f} ms per "
           f"launch (median of 10, CUDA events); the same sums as {n_boot} "
           f"single launches {singles_ms:.3f} ms; bound {batched_bound[0]:.3f} "
@@ -1946,6 +2578,13 @@ def main() -> int:
     if (max(q_err["effect"], q_err["intervention"]) > ATOL_QUERY
             or not solve_q <= 1.0 or not rca_q <= 1.0):
         fail("a query answer disagrees with its direct function")
+
+    # 13. telemetry: the main paths with the port's telemetry off and on
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    tele = telemetry_phase(dev, peaks, gt, gt_b, boot_kw, reqs, series,
+                           stream_cfg, sw, out_dir)
+    print(f"telemetry phase: {time.perf_counter() - t0:.1f} s")
     del engine, reqs, gts, series, base, queries, fitted
     shutil.rmtree(tune_dir)
     del os.environ["REPRO_TORCH_TUNE_CACHE"]
@@ -1955,7 +2594,15 @@ def main() -> int:
 
     # 12. the paper's experiments
     (experiments_launches, gene_ms, gene_bound, gene_shape,
-     gene_err) = paper_experiments(dev, cuda_ms, sms, clock_mhz)
+     gene_err) = paper_experiments(dev, cuda_ms, peaks)
+
+    # 14. the mesh plan on the card
+    t0 = time.perf_counter()
+    mesh = mesh_phase(dev, gt, out_dir)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(out_dir, "phase13_14.json"), "w") as f:
+        json.dump({"telemetry": tele, "mesh": mesh}, f, indent=1,
+                  default=float)
 
     # 11. kernels line (printed after phase 12, whose launches it
     # reports): launches are those of each kernel's path (the
@@ -2038,6 +2685,9 @@ def main() -> int:
         "serving_dispatch_us": dispatch_us,
         "warmup_search": [r for r in warm_rows
                           if r["op"] == "pairwise_moment_sums_chunked"],
+        "mesh_launches": mesh["mesh_b2"],
+        "mesh_1x1_s": mesh["times"]["mesh"],
+        "mesh_local_s": mesh["times"]["local"],
         "ptxas": b12_ptxas,
     }, {
         "name": "fused_moment_sums",
@@ -2064,7 +2714,7 @@ def main() -> int:
           f"{worst:.3e}, batched B1 {worst_batched:.3e}, B2 {worst_rows:.3e} "
           f"per sample, B3 {worst_fused:.3e} per sample)")
 
-    # 13. last line
+    # 15. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

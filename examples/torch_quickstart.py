@@ -1,6 +1,7 @@
 """Quickstart: causal discovery with the PyTorch/CUDA port on one card.
 
     PYTHONPATH=src python3 examples/torch_quickstart.py [--device cpu]
+        [--telemetry] [--profile]
 
 Simulates data from a known layered DAG (paper section 3.1 protocol),
 runs the parallel DirectLiNGAM on the card, verifies it against the
@@ -9,8 +10,21 @@ sequential reference, compares the CUDA kernel backend with the plain
 graph: total-effect queries, a do-intervention, and root-cause
 attribution of an anomalous sample (the full discovery -> query path).
 ``--device cpu`` runs everything on the CPU, where the kernel's plain
-version takes the kernel's place. (The JAX package's ``--telemetry`` and
-``--profile`` sections wait for the port's telemetry layer.)
+version takes the kernel's place.
+
+With ``--telemetry`` the run also drives the serving engine (a fit
+micro-batch, a streaming session through refit flushes, and causal
+queries) with the port's observability layer on
+(:mod:`repro_torch.obs`), then prints the span tree, the metrics
+snapshot and the build/search log, and writes a Chrome trace under
+``--telemetry-out``.
+
+With ``--profile`` it runs the performance-accounting layer
+(:mod:`repro_torch.obs.profile`): a profiled fit inside a
+``torch.profiler`` window with the host spans mirrored onto it, the
+stage-attribution table (seconds, operations, share of the roofline per
+stage and kernel variant) and the cost records, writing the device trace
+next to the host span trace under ``--profile-out``.
 """
 
 import argparse
@@ -122,8 +136,127 @@ def main(device: str) -> None:
           f"ranking {report.ranking(top_k=3)}")
 
 
+def telemetry_demo(device: str, out_dir=None) -> None:
+    """Drive dispatch -> ordering -> pruning -> serve flush -> query with
+    telemetry on; print the span tree, metrics and build/search log.
+    ``out_dir`` also receives ``trace_events.json`` (Chrome trace-event
+    format) and ``metrics_snapshot.json``."""
+    import json
+
+    from repro_torch import obs
+    from repro_torch.infer import query as query_lib
+    from repro_torch.serve.engine import CausalDiscoveryEngine, FitRequest
+    from repro_torch.stream.session import StreamConfig
+
+    obs.enable()
+    obs.reset_all()
+    rng = np.random.default_rng(0)
+
+    print("\n=== Telemetry: serving engine under observation ===")
+    eng = CausalDiscoveryEngine(batch_size=4, device=device)
+    eng.run([
+        FitRequest(data=rng.normal(size=(256, 8)).astype(np.float32))
+        for _ in range(3)
+    ])
+    sid = eng.open_stream(
+        StreamConfig(d=6, chunk=32, window_chunks=4, refit_every=1))
+    for _ in range(7):
+        eng.post_chunk(sid, rng.normal(size=(32, 6)).astype(np.float32))
+    eng.flush_streams()
+    answered = eng.query([
+        query_lib.EffectQuery(graph=sid),
+        query_lib.InterventionQuery(graph=sid, do={0: 1.5}),
+    ])
+    print(f"stream {sid}: {eng.stream_session(sid).n_refits} refits, "
+          f"{len(answered)} queries answered, "
+          f"{len(eng.last_flush_errors)} flush errors")
+
+    print("\n--- span tree (spans tagged [trace] ran while capturing) ---")
+    print(obs.format_tree())
+    print("--- metrics snapshot ---")
+    print(json.dumps(obs.metrics.snapshot(), indent=1, sort_keys=True))
+    print("--- builds and searches (op -> events) ---")
+    for op, n in sorted(obs.compile_log.by_op().items()):
+        print(f"  {op}: {n}")
+
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        trace_path = obs.write_chrome_trace(
+            os.path.join(out_dir, "trace_events.json"))
+        metrics_path = os.path.join(out_dir, "metrics_snapshot.json")
+        with open(metrics_path, "w") as f:
+            json.dump(obs.metrics.snapshot(), f, indent=1, sort_keys=True)
+        print(f"wrote {trace_path} (open in chrome://tracing or "
+              f"ui.perfetto.dev) and {metrics_path}")
+
+
+def profile_demo(device: str, out_dir=None) -> None:
+    """Profiled fit + stage attribution + device trace (on the CPU, the
+    plain path only: the CUDA kernel's row needs the card). ``out_dir``
+    receives ``trace_events.json`` (host spans), ``device_trace/
+    device_trace.json`` (the torch.profiler trace, host spans mirrored
+    as record_function ranges) and ``profile_snapshot.json`` (the cost
+    records and the card's peaks)."""
+    import json
+
+    from repro_torch import obs
+    from repro_torch.analysis import report
+    from repro_torch.obs import profile
+
+    obs.enable()
+    profile.enable()
+    obs.reset_all()
+
+    print("\n=== Profiling: cost records + roofline attribution ===")
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        with profile.device_trace(os.path.join(out_dir, "device_trace")):
+            payload = report.live_attribution(
+                m=512, d=16, repeats=2, device=device,
+                include_cuda=device == "cuda")
+    else:
+        payload = report.live_attribution(
+            m=512, d=16, repeats=2, device=device,
+            include_cuda=device == "cuda")
+    print(report.render(payload))
+
+    print("\n--- cost records ---")
+    for rec in profile.records():
+        print(f"  {rec.op} shape={rec.shape} ops={rec.flops:.3g} "
+              f"bytes={rec.bytes_accessed:.3g} temp={rec.temp_bytes} "
+              f"calls={rec.calls} best={rec.best_s * 1e3:.2f}ms")
+
+    if out_dir is not None:
+        trace_path = obs.write_chrome_trace(
+            os.path.join(out_dir, "trace_events.json"))
+        snap_path = os.path.join(out_dir, "profile_snapshot.json")
+        with open(snap_path, "w") as f:
+            json.dump(profile.snapshot(), f, indent=1)
+        print(f"\nwrote {trace_path}, {snap_path}, and "
+              f"{os.path.join(out_dir, 'device_trace')}/ (open both traces "
+              f"in ui.perfetto.dev to line up host spans with kernels)")
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the fits run (default: the card)")
-    main(ap.parse_args().device)
+    ap.add_argument("--telemetry", action="store_true",
+                    help="run the serving/streaming demo with "
+                         "repro_torch.obs enabled and print span tree + "
+                         "metrics")
+    ap.add_argument("--telemetry-out", type=str, default="telemetry_out",
+                    help="directory for --telemetry artifacts "
+                         "(chrome trace + metrics snapshot)")
+    ap.add_argument("--profile", action="store_true",
+                    help="run the profiled fit: stage-attribution table, "
+                         "cost records, host + device trace")
+    ap.add_argument("--profile-out", type=str, default="profile_out",
+                    help="directory for --profile artifacts "
+                         "(host trace, device trace, cost snapshot)")
+    args = ap.parse_args()
+    main(args.device)
+    if args.telemetry:
+        telemetry_demo(args.device, out_dir=args.telemetry_out)
+    if args.profile:
+        profile_demo(args.device, out_dir=args.profile_out)

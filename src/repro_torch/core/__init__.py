@@ -1,7 +1,13 @@
-"""DirectLiNGAM / VarLiNGAM functional core and facades (local plan), and
-the batched engine (many fits, bootstrap)."""
+"""DirectLiNGAM / VarLiNGAM functional core and facades (local and mesh
+plans), and the batched engine (many fits, bootstrap)."""
 
-from .api import FitConfig, FitResult, fit_fn, fit_from_stats  # noqa: F401
+from .api import (  # noqa: F401
+    FitConfig,
+    FitResult,
+    Partition,
+    fit_fn,
+    fit_from_stats,
+)
 from .batched import (  # noqa: F401
     bootstrap_fits,
     bootstrap_fits_with,

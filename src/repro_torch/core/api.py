@@ -3,13 +3,26 @@
 The stateful ``DirectLiNGAM`` facade sits over the types here:
 
   * :class:`FitConfig` -- frozen estimator settings.
+  * :class:`Partition` -- an optional mesh-partition spec inside the
+    config: mesh axes and sizes, which axes shard the samples, which axis
+    tiles the (i, j) pair rows, the sample padding granularity.
   * :class:`FitResult` -- one fit, or a batch of fits: order, adjacency,
     residual variances, as tensors on the fit's device.
 
 ``fit_fn(x, config)`` is the whole fit (ordering, adjacency,
 diagnostics) on ``x.device``: the CUDA kernel carries the pairwise
 moments on a card, the kernel's plain version on the CPU. The order is
-copied to the host once, by the caller that reads it.
+copied to the host once, by the caller that reads it. The config picks
+the execution plan, all three running the same ordering step
+(:func:`repro_torch.core.ordering.ordering_step`):
+
+  * **local** (``partition=None``) -- one device;
+  * **batched** -- :mod:`repro_torch.core.batched` runs the local plan
+    over a leading axis of datasets;
+  * **mesh** (``partition=Partition(...)``) -- :mod:`repro_torch.core.
+    sharded` over a ``torch.distributed`` device mesh: samples sharded
+    over the sample axes (all_reduce), pair rows tiled over the pair
+    axis (all_gather), then the pruning with its row solves tiled.
 
     from repro_torch.core import api
     res = api.fit_fn(x, api.FitConfig())
@@ -26,9 +39,76 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops
+from repro_torch.obs import profile as obs_profile
 
 from . import ordering, pruning
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """Mesh-partition spec for the mesh execution plan.
+
+    ``mesh`` is a tuple of (axis_name, size) pairs, e.g.
+    ``(("data", 2), ("model", 2))``: the product is the world size of the
+    ``torch.distributed`` process group the fit runs in (a 1 x 1 mesh
+    runs in one process without one; ``launch.mesh.mesh_scope``).
+    ``sample_axes`` shard the sample dimension (all_reduce);
+    ``pair_axis`` tiles the (i, j) pair rows (all_gather). Samples are
+    padded to a multiple of ``n_sample_shards * chunk`` and variables to
+    a multiple of the pair axis size (padded columns enter inactive and
+    are never selected). The moment kernel needs no sample chunking, so
+    ``chunk`` only sets that padding: with shards a multiple of the
+    kernel's 128-sample sub-sums, the moments are bit for bit the local
+    plan's. ``fused_standardize`` folds the standardization into the
+    raw-X Gram product (one standardized-slab product saved a step).
+
+    ``gather_finish`` picks the adjacency/diagnostics tail:
+      * ``True`` (default) -- reassemble the data on every rank and
+        reduce the covariance there: the local plan's arithmetic, with
+        the OLS row solves tiled over the pair axis;
+      * ``False`` -- the fully sharded finish: covariance all_reduced
+        over the sample shards, diagnostics on local rows. Per-rank
+        memory stays O(m_local * d + d^2), at fp32 reduction-order
+        agreement instead of bit-equality.
+    """
+
+    mesh: Tuple[Tuple[str, int], ...] = (("data", 1), ("model", 1))
+    sample_axes: Tuple[str, ...] = ("data",)
+    pair_axis: str = "model"
+    chunk: int = 512
+    fused_standardize: bool = False
+    gather_finish: bool = True
+
+    def __post_init__(self):
+        if isinstance(self.mesh, dict):
+            object.__setattr__(self, "mesh", tuple(self.mesh.items()))
+        else:
+            object.__setattr__(
+                self, "mesh", tuple((str(a), int(s)) for a, s in self.mesh)
+            )
+        if isinstance(self.sample_axes, str):
+            object.__setattr__(self, "sample_axes", (self.sample_axes,))
+        else:
+            object.__setattr__(self, "sample_axes", tuple(self.sample_axes))
+        names = [a for a, _ in self.mesh]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate axis names in mesh {self.mesh}")
+        for ax in (*self.sample_axes, self.pair_axis):
+            if ax not in names:
+                raise ValueError(f"axis {ax!r} not in mesh {self.mesh}")
+        if self.pair_axis in self.sample_axes:
+            # An overlapping spec would sum different pair-row tiles
+            # together (wrong moments), never just run slower.
+            raise ValueError(
+                f"pair_axis {self.pair_axis!r} must be disjoint from "
+                f"sample_axes {self.sample_axes}"
+            )
+        if any(s < 1 for _, s in self.mesh) or self.chunk < 1:
+            raise ValueError(
+                f"mesh sizes and chunk must be >= 1: {self.mesh}, "
+                f"chunk={self.chunk}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +139,11 @@ class FitConfig:
     Tuned and heuristic plans give bit-identical moments, so ``tune``
     never changes results, only speed.
 
+    ``partition`` selects the execution plan: ``None`` for the local
+    (single-device / batched) plan, a :class:`Partition` for the mesh
+    plan. The mesh plan pads its sample shards through
+    ``Partition.chunk`` and ignores ``moment_chunk``.
+
     ``prune_kwargs`` is stored as a sorted tuple of (key, value) pairs so
     the config stays hashable; a dict is normalized on construction.
     """
@@ -72,6 +157,7 @@ class FitConfig:
     min_stage: int = 8
     moment_chunk: Optional[int] = None
     tune: str = "cache"
+    partition: Optional[Partition] = None
 
     def __post_init__(self):
         if isinstance(self.prune_kwargs, dict):
@@ -214,21 +300,36 @@ def fit_impl(x, config: FitConfig) -> FitResult:
     each adjacency the one a fit of x[k] alone gives for the same order.
     """
     x = x.float()
-    order = _order_for_config(x, config)
-    if x.dim() == 3:
-        return FitResult.stack([finish_fit(xk, ok, config)
-                                for xk, ok in zip(x, order)])
-    return finish_fit(x, order, config)
+    with obs.span("fit.ordering", d=x.shape[-1],
+                  compaction=config.compaction):
+        order = _order_for_config(x, config)
+    with obs.span("fit.pruning", method=config.prune_method):
+        if x.dim() == 3:
+            return FitResult.stack([finish_fit(xk, ok, config)
+                                    for xk, ok in zip(x, order)])
+        return finish_fit(x, order, config)
 
 
 def fit_fn(x, config: FitConfig = FitConfig()) -> FitResult:
     """DirectLiNGAM fit: (m, d) tensor + config -> FitResult on x.device.
 
-    TF32 is off by default in PyTorch (``torch.backends.cuda.matmul``);
-    the fit raises if it has been turned on.
+    With ``config.partition`` set the fit runs the mesh plan
+    (:func:`repro_torch.core.sharded.fit_sharded`) and returns the same
+    :class:`FitResult`: bit for bit the local plan's where the shards
+    line up with the kernel's sub-sums, within fp32 reduction order
+    elsewhere. TF32 is off by default in PyTorch
+    (``torch.backends.cuda.matmul``); the fit raises if it has been
+    turned on.
     """
     _check_device(x)
-    return fit_impl(x, config)
+    if config.partition is not None:
+        from . import sharded
+
+        with obs.span("fit.mesh", m=x.shape[0], d=x.shape[1]):
+            return sharded.fit_sharded(x, config)
+    with obs.span("fit.local", m=x.shape[0], d=x.shape[1]):
+        return obs_profile.call(fit_impl, x, config, op="core.fit",
+                                shape=x.shape, config=config)
 
 
 _STATS_EPS = 1e-12
@@ -279,6 +380,14 @@ def fit_from_stats(
     solves (from ``cov``), and the residual diagnostics
     ``diag((I-B) cov (I-B)^T)``. Only the nonlinear ordering moments
     still read the rows (chunk-bounded with ``config.moment_chunk``).
+    The mesh plan has no from-stats variant: a partitioned config
+    raises.
     """
+    if config.partition is not None:
+        raise ValueError(
+            "fit_from_stats runs the local/batched plans only; the mesh "
+            "plan recomputes statistics shard-locally: drop "
+            "config.partition or use fit_fn."
+        )
     _check_device(x)
     return fit_impl_from_stats(x, mean, cov, config)

@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import profile as obs_profile
+
 from .api import (FitConfig, FitResult, _check_device, fit_impl,
                   fit_impl_from_stats, resolve_device)
 
@@ -68,7 +70,8 @@ def fit_many(xs, config: FitConfig = FitConfig()) -> FitResult:
     _require_local_plan(config, "fit_many")
     _check_batch(xs)
     _check_device(xs)
-    return fit_impl(xs, config)
+    return obs_profile.call(fit_impl, xs, config, op="batched.fit_many",
+                            shape=xs.shape, config=config)
 
 
 def fit_many_from_stats(
@@ -82,7 +85,9 @@ def fit_many_from_stats(
     _require_local_plan(config, "fit_many_from_stats")
     _check_batch(xs)
     _check_device(xs)
-    return fit_impl_from_stats(xs, means, covs, config)
+    return obs_profile.call(fit_impl_from_stats, xs, means, covs, config,
+                            op="batched.fit_many_from_stats", shape=xs.shape,
+                            config=config)
 
 
 def warmup_fit_many(shape, config: FitConfig = FitConfig(), *,
@@ -126,7 +131,10 @@ def bootstrap_fits(x, indices, config: FitConfig = FitConfig()) -> FitResult:
     """
     _require_local_plan(config, "bootstrap_fits")
     _check_device(x)
-    return fit_impl(_resamples(x, indices), config)
+    xs = _resamples(x, indices)
+    return obs_profile.call(fit_impl, xs, config,
+                            op="batched.bootstrap_fits", shape=xs.shape,
+                            config=config)
 
 
 def bootstrap_fits_with(

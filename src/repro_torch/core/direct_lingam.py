@@ -35,6 +35,7 @@ class DirectLiNGAM:
     compaction: str = "none"
     tune: str = "cache"
     device: str = "cuda"
+    partition: Optional[api.Partition] = None
 
     causal_order_: Optional[np.ndarray] = None
     adjacency_: Optional[np.ndarray] = None
@@ -50,6 +51,7 @@ class DirectLiNGAM:
             prune_kwargs=dict(self.prune_kwargs),
             compaction=self.compaction,
             tune=self.tune,
+            partition=self.partition,
         )
 
     def fit(self, x) -> "DirectLiNGAM":

@@ -13,9 +13,10 @@ buffer, or over a batch of them, (b, m, d):
 
 :func:`ordering_step` is the one implementation of the step; the
 :class:`LocalReducer` carries out its sample and pair reductions on one
-device. The root stays a device tensor throughout: no step reads a value
-back to the host, and the order is copied off the device once, at the
-end, by the caller.
+device, the mesh plan's ``MeshReducer`` (:mod:`repro_torch.core.sharded`)
+over a ``torch.distributed`` device mesh. The root stays a device tensor
+throughout: no step reads a value back to the host, and the order is
+copied off the device once, at the end, by the caller.
 
 Every function here takes an optional leading batch axis: data (b, m, w),
 mask (b, w), roots (b,); without it, (m, w), (w,) and a 0-d root. The
@@ -66,7 +67,15 @@ class LocalReducer:
       * ``col_moments(x_std) -> (cm1, cm2)`` per-column nonlinear moments
         for the H(x_i) entropies
       * ``standardize(x) -> (x_std, c, mu, var)``
+      * ``mask_rows(v)`` -- zero the rows that are sample padding
+        (identity here; a mesh shard carries a zero-padded tail)
+      * ``gather_rows(rows)`` -- the full moment matrices from the plan's
+        row tiles (identity here; all_gather over the pair axis on a mesh)
+      * ``col_multiple`` -- buffer widths must be multiples of this (1
+        here; the pair-axis size on a mesh), kept by the staged ordering
     """
+
+    col_multiple = 1
 
     def __init__(self, backend: str = None, moment_chunk: int = None,
                  tune: str = "cache"):
@@ -85,6 +94,12 @@ class LocalReducer:
     def standardize(self, x):
         return step_standardize(x, self)
 
+    def mask_rows(self, v):
+        return v
+
+    def gather_rows(self, rows):
+        return rows
+
     def moment_rows(self, x_std, c):
         if self.moment_chunk:
             return ops.pairwise_moments_chunked(
@@ -102,10 +117,11 @@ def step_standardize(x, reducer):
 
     Two-pass variance (E[(x - mu)^2]): the one-pass E[x^2] - mu^2 form
     cancels catastrophically in fp32 when column means dwarf the stds.
-    Returns (x_std, c, mu, var); the residual update reuses mu and var.
+    Padded sample rows (mesh) are zeroed again after centering. Returns
+    (x_std, c, mu, var); the residual update reuses mu and var.
     """
     mu = reducer.mean_over_samples(x)
-    xc = x - mu[..., None, :]
+    xc = reducer.mask_rows(x - mu[..., None, :])
     var = torch.clamp(reducer.mean_over_samples(xc * xc), min=EPS)
     x_std = xc * torch.rsqrt(var)[..., None, :]
     c = reducer.gram_mean(x_std)
@@ -152,13 +168,15 @@ def ordering_step(x, active, reducer):
       x:       (m, width) working data, or a batch (b, m, width).
       active:  (width,) or (b, width) bool mask of variables still to be
                ordered.
-      reducer: the plan's reducer (:class:`LocalReducer`).
+      reducer: the plan's reducer (:class:`LocalReducer`, or the mesh
+               plan's ``MeshReducer``).
     Returns:
       (x_new, active_new, root): residualized data, updated mask, and
       the column chosen this step as a 0-d device tensor, or (b,).
     """
     x_std, c, mu, var = reducer.standardize(x)
-    m1, m2 = reducer.moment_rows(x_std, c)
+    rows1, rows2 = reducer.moment_rows(x_std, c)
+    m1, m2 = reducer.gather_rows(rows1), reducer.gather_rows(rows2)
     cm1, cm2 = reducer.col_moments(x_std)
     k_list = step_scores(cm1, cm2, m1, m2, active)
     root = torch.argmax(k_list, dim=-1)  # first maximum, as jnp.argmax
@@ -170,11 +188,13 @@ def residualize(x, active, root, mu, var, reducer):
     """Regress every other active column on ``root``'s column of the
     unstandardized working data (two-pass covariance, with the step's
     column means ``mu`` and variances ``var``). Returns the new data and
-    the mask without ``root``."""
+    the mask without ``root``. Padded sample rows (mesh) are masked out
+    of the covariance after centering."""
     sel = root[..., None]  # (..., 1)
     xr = torch.gather(x, -1, sel[..., None, :].expand(*x.shape[:-1], 1))
     mu_r = torch.gather(mu, -1, sel)[..., None, :]
-    cov = reducer.mean_over_samples((x - mu[..., None, :]) * (xr - mu_r))
+    cov = reducer.mean_over_samples(
+        reducer.mask_rows((x - mu[..., None, :]) * (xr - mu_r)))
     coef = cov / torch.gather(var, -1, sel)
     cols = torch.arange(x.shape[-1], device=x.device)
     not_root = cols != sel
@@ -182,14 +202,16 @@ def residualize(x, active, root, mu, var, reducer):
     return x - xr * update[..., None, :], active & not_root
 
 
-def masked_order_impl(x, reducer):
+def masked_order_impl(x, reducer, *, d=None):
     """Full masked scan: d identical steps at constant width. Returns the
     order as a (d,) int64 tensor on ``x``'s device, or (b, d) for a batch
-    (b, m, d)."""
-    d = x.shape[-1]
+    (b, m, d). ``d`` is the number of real variables; columns at index
+    >= d (mesh padding) start inactive and are never selected."""
+    width = x.shape[-1]
+    d = width if d is None else d
     x = x.float().contiguous()  # sample-major rows, as the kernel reads them
-    active = torch.ones(x.shape[:-2] + (d,), dtype=torch.bool,
-                        device=x.device)
+    active = (torch.arange(width, device=x.device) < d).expand(
+        *x.shape[:-2], width)
     order = []
     for _ in range(d):
         x, active, root = ordering_step(x, active, reducer)
@@ -230,35 +252,44 @@ def _stage_schedule(d: int, frac: float = 0.25, min_stage: int = 8):
     return tuple(sched)
 
 
-def compact_order_impl(x, reducer, *, frac=0.25, min_stage=8):
+def compact_order_impl(x, reducer, *, d=None, frac=0.25, min_stage=8):
     """Staged compaction: after each stage, gather the surviving columns
     into a narrower buffer (each batch element its own). Inactive columns
     never influence active ones, so the order equals
     :func:`masked_order_impl` exactly. The schedule depends on d alone, so
-    all elements of a batch share each width."""
-    lead, d = x.shape[:-2], x.shape[-1]
+    all elements of a batch share each width. ``d`` is the number of real
+    variables (columns past it are mesh padding); buffer widths stay
+    multiples of ``reducer.col_multiple``, the freed slots zeroed and
+    inactive."""
+    lead, width = x.shape[:-2], x.shape[-1]
+    d = width if d is None else d
+    col_multiple = reducer.col_multiple
     x = x.float().contiguous()
     # current column -> original, per element
-    labels = torch.arange(d, device=x.device).expand(*lead, d)
-    active = torch.ones(lead + (d,), dtype=torch.bool, device=x.device)
+    labels = torch.arange(width, device=x.device).expand(*lead, width)
+    active = (torch.arange(width, device=x.device) < d).expand(*lead, width)
     parts = []
-    for width, n_steps in _stage_schedule(d, frac, min_stage):
+    for w_logical, n_steps in _stage_schedule(d, frac, min_stage):
         roots = []
         for _ in range(n_steps):
             x, active, root = ordering_step(x, active, reducer)
             roots.append(root)
         parts.append(torch.gather(labels, -1, torch.stack(roots, dim=-1)))
-        keep = width - n_steps
+        keep = w_logical - n_steps
         if keep:
+            keep_pad = ops._round_up(keep, col_multiple)
             # Surviving columns in ascending order (inactive sort last).
             cols = torch.arange(width, device=x.device)
             idx = torch.argsort(torch.where(active, cols, width),
-                                dim=-1)[..., :keep]
+                                dim=-1)[..., :keep_pad]
             x = torch.gather(x, -1, idx[..., None, :].expand(
-                *x.shape[:-1], keep))
+                *x.shape[:-1], keep_pad))
             labels = torch.gather(labels, -1, idx)
-            active = torch.ones(lead + (keep,), dtype=torch.bool,
-                                device=x.device)
+            active = (torch.arange(keep_pad, device=x.device) < keep
+                      ).expand(*lead, keep_pad)
+            if keep_pad != keep:
+                x = torch.where(active[..., None, :], x, 0.0)
+            width = keep_pad
     return torch.cat(parts, dim=-1)
 
 

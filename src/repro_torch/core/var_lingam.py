@@ -66,6 +66,7 @@ class VarLiNGAM:
     compaction: str = "none"
     tune: str = "cache"
     device: str = "cuda"
+    partition: Optional[api.Partition] = None
 
     causal_order_: Optional[np.ndarray] = None
     adjacency_matrices_: Optional[List[np.ndarray]] = None  # [theta_0..k]
@@ -80,6 +81,7 @@ class VarLiNGAM:
             prune_threshold=self.prune_threshold,
             compaction=self.compaction,
             tune=self.tune,
+            partition=self.partition,
         )
 
     def fit(self, x) -> "VarLiNGAM":

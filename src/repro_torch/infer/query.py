@@ -27,12 +27,16 @@ stream-session ids to :class:`FittedGraph`\\ s and delegates here.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import api
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import profile as obs_profile
+from repro_torch.obs import trace as obs_trace
 
 from . import effects as effects_lib
 from . import intervene as intervene_lib
@@ -157,6 +161,14 @@ class RCAQuery:
     result: Optional[rca_lib.RCAResult] = None
 
 
+def _intervene_batch(adj, order, mask, values, noise_mean, noise_var):
+    """Interventional means and covariances of a batch of graphs."""
+    mu = intervene_lib.interventional_mean_impl(adj, order, mask, values,
+                                                noise_mean)
+    cov = intervene_lib.interventional_cov_impl(adj, order, mask, noise_var)
+    return mu, cov
+
+
 class QueryEngine:
     """Grouped, micro-batched execution of causal queries.
 
@@ -200,8 +212,15 @@ class QueryEngine:
             groups.setdefault(key, []).append(q)
         for key, group in groups.items():
             runner = getattr(self, f"_run_{key[0]}")
-            for start in range(0, len(group), self.batch_size):
-                runner(group[start:start + self.batch_size])
+            with obs_trace.span("query.bucket", kind=key[0], d=key[2],
+                                n=len(group)):
+                t0 = time.perf_counter()
+                for start in range(0, len(group), self.batch_size):
+                    runner(group[start:start + self.batch_size])
+                obs_metrics.observe("query.bucket_s",
+                                    time.perf_counter() - t0,
+                                    kind=key[0], d=key[2])
+                obs_metrics.inc("query.requests", len(group), kind=key[0])
         return queries
 
     @staticmethod
@@ -213,7 +232,9 @@ class QueryEngine:
 
     def _run_effects(self, part):
         _, adj, order = self._stack_graphs(part)
-        out = effects_lib.total_effects_impl(adj, order).cpu().numpy()
+        out = obs_profile.call(effects_lib.total_effects_impl, adj, order,
+                               op="query.effects",
+                               shape=adj.shape).cpu().numpy()
         for i, q in enumerate(part):
             q.effects = out[i]
 
@@ -223,11 +244,12 @@ class QueryEngine:
         masks, values = zip(*(intervene_lib.do_arrays(gs[0].d, q.do)
                               for q in part))
         mask = torch.as_tensor(np.stack(masks), device=dev)
-        mu = intervene_lib.interventional_mean_impl(
-            adj, order, mask, torch.as_tensor(np.stack(values), device=dev),
-            torch.stack([g.noise_mean for g in gs]))
-        cov = intervene_lib.interventional_cov_impl(
-            adj, order, mask, torch.stack([g.noise_var for g in gs]))
+        mu, cov = obs_profile.call(
+            _intervene_batch, adj, order, mask,
+            torch.as_tensor(np.stack(values), device=dev),
+            torch.stack([g.noise_mean for g in gs]),
+            torch.stack([g.noise_var for g in gs]),
+            op="query.intervention", shape=adj.shape)
         mu, cov = mu.cpu().numpy(), cov.cpu().numpy()
         for i, q in enumerate(part):
             q.mean, q.cov = mu[i], cov[i]
@@ -248,8 +270,9 @@ class QueryEngine:
             k = block.shape[1]
             padded = torch.as_tensor(rca_lib._pad_rows(block, slab, axis=1),
                                      device=dev)
-            s, c = rca_lib._rca(adj, order, padded, means, noise_var,
-                                targets)
+            s, c = obs_profile.call(
+                rca_lib._rca, adj, order, padded, means, noise_var, targets,
+                op="query.rca", shape=padded.shape)
             scores_parts.append(s[:, :k].cpu().numpy())
             contrib_parts.append(c[:, :k].cpu().numpy())
         scores = np.concatenate(scores_parts, axis=1)

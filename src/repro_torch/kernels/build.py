@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from repro_torch.obs import compile_log
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -85,6 +87,8 @@ def load(name: str) -> ctypes.CDLL:
             "seconds": time.perf_counter() - t0,
             "log": proc.stderr,
         }
+        compile_log.record("kernels.build", config=out.name,
+                           source=name, seconds=build_info[name]["seconds"])
     lib = ctypes.CDLL(str(out))
     _loaded[name] = lib
     return lib

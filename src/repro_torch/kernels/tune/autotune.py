@@ -36,6 +36,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import compile_log
+from repro_torch.obs import profile as obs_profile
+from repro_torch.obs import trace as obs_trace
+
 from . import cache as tune_cache
 from . import registry
 
@@ -61,7 +65,24 @@ class TunePlan:
     measurements: List[Measurement]
 
     def to_row(self) -> dict:
-        """JSON row: the decision and every candidate's time."""
+        """JSON row: the decision and every candidate's time, with its
+        achieved rate and share of the roofline where the analytic cost
+        model covers the op (:func:`repro_torch.obs.profile.analytic_cost`
+        against the card's peaks)."""
+        cost = obs_profile.analytic_cost(self.op, self.shape,
+                                         batch=self.batch)
+        peaks = obs_profile.device_peaks(self.device_kind)
+
+        def cand_row(m: Measurement) -> dict:
+            row = {**m.plan.to_entry(), "source": m.plan.source,
+                   "ms": m.seconds * 1e3}
+            if cost is not None:
+                u = obs_profile.utilization(cost["flops"], cost["bytes"],
+                                            m.seconds, peaks, cost["unit"])
+                row["gflops_per_s"] = u["gflops_per_s"]
+                row["roofline_frac"] = u["roofline_frac"]
+            return row
+
         return {
             "key": self.key,
             "op": self.op,
@@ -69,9 +90,7 @@ class TunePlan:
             "batch": self.batch,
             "device_kind": self.device_kind,
             "best": self.best.to_entry(),
-            "candidates": [{**m.plan.to_entry(), "source": m.plan.source,
-                            "ms": m.seconds * 1e3}
-                           for m in self.measurements],
+            "candidates": [cand_row(m) for m in self.measurements],
         }
 
 
@@ -200,11 +219,17 @@ def autotune_op(
     """
     backend = registry.resolve_backend(backend)
     kind = registry.device_kind(device)
-    measurements = measure_candidates(
-        _bench_fn(op, shape, chunk, batch, device),
-        candidate_plans(op, shape, backend=backend, chunk=chunk, batch=batch,
-                        device=device),
-        repeats=repeats, device=device)
+    t0 = time.perf_counter()
+    with obs_trace.span("kernels.tune", op=op, shape=tuple(shape),
+                        batch=batch):
+        measurements = measure_candidates(
+            _bench_fn(op, shape, chunk, batch, device),
+            candidate_plans(op, shape, backend=backend, chunk=chunk,
+                            batch=batch, device=device),
+            repeats=repeats, device=device)
+    compile_log.record("kernels.tune", shape=shape,
+                       config=(op, backend, chunk, batch, kind),
+                       seconds=time.perf_counter() - t0)
     best = dataclasses.replace(
         min(measurements, key=lambda m: m.seconds).plan, source="tuned")
     key = tune_cache.plan_key(kind, op, backend, registry.dtype_token(dtype),

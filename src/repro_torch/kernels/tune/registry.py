@@ -54,6 +54,10 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import profile as obs_profile
+from repro_torch.obs import trace as obs_trace
+
 from .. import pairwise_stats
 from . import cache as tune_cache
 
@@ -67,12 +71,10 @@ _MODES = ("off", "cache", "auto")
 
 def searching_allowed() -> bool:
     """False while a CUDA graph is being captured on the current stream
-    or ``torch.compile`` traces: the timed search would measure the
-    capture or the trace, and launch kernels inside it."""
-    if torch.compiler.is_compiling():
-        return False
-    return not (torch.cuda.is_available()
-                and torch.cuda.is_current_stream_capturing())
+    or ``torch.compile`` traces (:func:`repro_torch.obs.trace.capturing`):
+    the timed search would measure the capture or the trace, and launch
+    kernels inside it."""
+    return not obs_trace.capturing()
 
 
 def _device(device) -> torch.device:
@@ -309,6 +311,36 @@ def dispatch(
       table:  an explicit :class:`TuneTable` (tests, benchmarks); defaults
               to the process singleton.
     """
+    if not obs_trace.enabled():
+        return _dispatch_resolve(op, shape, dtype, backend, mode=mode,
+                                 chunk=chunk, batch=batch, device=device,
+                                 table=table)
+    with obs_trace.span("kernels.dispatch", op=op, shape=tuple(shape),
+                        mode=mode, batch=batch) as sp:
+        plan = _dispatch_resolve(op, shape, dtype, backend, mode=mode,
+                                 chunk=chunk, batch=batch, device=device,
+                                 table=table)
+        sp.set(variant=plan.variant, source=plan.source, tile=plan.tile)
+    # Per-variant dispatch counts and tuned-vs-heuristic provenance.
+    obs_metrics.inc("kernels.dispatch", op=op, backend=plan.backend,
+                    variant=plan.variant, source=plan.source)
+    obs_profile.note_plan(op, shape, variant=plan.variant,
+                          source=plan.source, batch=batch)
+    return plan
+
+
+def _dispatch_resolve(
+    op: str,
+    shape,
+    dtype="float32",
+    backend: Optional[str] = None,
+    *,
+    mode: str = "cache",
+    chunk: Optional[int] = None,
+    batch: int = 1,
+    device="cuda",
+    table: Optional[tune_cache.TuneTable] = None,
+) -> Plan:
     if mode not in _MODES:
         raise ValueError(f"unknown tune mode {mode!r}; expected {_MODES}")
     backend = resolve_backend(backend)

@@ -36,13 +36,20 @@ to bound its compiles; the port has no compile cache), with
 finite (non-finite rows posted to it) is held out of the batched refit
 and reported as a ``"prepare"`` flush error; results of ``run`` are
 numpy arrays on the host, as the reference's; and the engine runs on
-``device``, the card unless the caller asks for ``"cpu"``. It has no
-telemetry yet (ROADMAP item 13) and no mesh plan (item 12).
+``device``, the card unless the caller asks for ``"cpu"``.
+
+A config with a ``partition`` is served by the mesh plan
+(:mod:`repro_torch.core.sharded`): each request is one ``api.fit_fn``
+over the mesh, all of a ``run`` call's requests inside one
+``launch.mesh.mesh_scope`` (a world of one set up for the call when no
+process group exists). Batched fits and stream refits stay on the local
+plan, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +59,9 @@ from repro_torch.core import api as lingam_api
 from repro_torch.core import batched as lingam_batched
 from repro_torch.infer import query as query_lib
 from repro_torch.kernels.tune import autotune as ktune_autotune
+from repro_torch.launch import mesh as launch_mesh
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.ring import BoundedRing
 from repro_torch.stream import monitor as monitor_lib
 from repro_torch.stream import session as stream_session
@@ -114,10 +124,6 @@ class CausalDiscoveryEngine:
                  warmup_shapes: Optional[List[Tuple[int, int]]] = None,
                  device="cuda"):
         self.config = config or lingam_api.FitConfig(compaction="staged")
-        if getattr(self.config, "partition", None) is not None:
-            raise NotImplementedError(
-                "the mesh plan is not ported yet (ROADMAP queue A, item 5)"
-            )
         self.device = lingam_api.resolve_device(device)
         self.batch_size = batch_size
         self._streams: Dict[str, stream_session.StreamSession] = {}
@@ -165,7 +171,7 @@ class CausalDiscoveryEngine:
                 chunk=sc.fit.moment_chunk or sc.chunk,
                 batch=self.batch_size, device=self.device,
             ))
-        if compile:
+        if compile and self.config.partition is None:
             for shape in shapes:
                 lingam_batched.warmup_fit_many(shape, self.config,
                                                device=self.device)
@@ -173,26 +179,54 @@ class CausalDiscoveryEngine:
 
     def run(self, requests: List[FitRequest]) -> List[FitRequest]:
         """Fit every request, grouped by shape into batched fits of up to
-        ``batch_size``; each request's ``result`` is set to a
-        :class:`FitResult` of numpy arrays."""
-        by_shape: Dict[Tuple[int, ...], List[FitRequest]] = {}
-        for r in requests:
-            by_shape.setdefault(np.shape(r.data), []).append(r)
-        for group in by_shape.values():
-            for start in range(0, len(group), self.batch_size):
-                self._run_fit_bucket(group[start:start + self.batch_size])
+        ``batch_size`` (with a partition: one mesh fit each); each
+        request's ``result`` is set to a :class:`FitResult` of numpy
+        arrays."""
+        with obs_trace.span("serve.run", n=len(requests)):
+            if self.config.partition is not None:
+                self._run_mesh(requests)
+            else:
+                by_shape: Dict[Tuple[int, ...], List[FitRequest]] = {}
+                for r in requests:
+                    by_shape.setdefault(np.shape(r.data), []).append(r)
+                for shape, group in by_shape.items():
+                    for start in range(0, len(group), self.batch_size):
+                        self._run_fit_bucket(
+                            shape, group[start:start + self.batch_size])
+            obs_metrics.inc("serve.fit_requests", len(requests))
         return requests
 
-    def _run_fit_bucket(self, part: List[FitRequest]) -> None:
-        # Row-major like the facades' input (simulated data is Fortran
-        # ordered, and np.stack keeps that layout).
-        xs = torch.as_tensor(np.stack([
-            np.ascontiguousarray(r.data, dtype=np.float32) for r in part]),
-            device=self.device)
-        order, adj, rv = lingam_batched.fit_many(xs, self.config).to_numpy()
-        for i, r in enumerate(part):
-            r.result = lingam_api.FitResult(
-                order=order[i], adjacency=adj[i], resid_var=rv[i])
+    def _run_mesh(self, requests: List[FitRequest]) -> None:
+        """Mesh plan: one ``api.fit_fn`` over the mesh per request, all in
+        one mesh scope (the reference's ``_run_mesh``)."""
+        with launch_mesh.mesh_scope(self.config.partition.mesh,
+                                    self.device.type):
+            for r in requests:
+                x = torch.as_tensor(
+                    np.ascontiguousarray(r.data, dtype=np.float32),
+                    device=self.device)
+                order, adj, rv = lingam_api.fit_fn(x, self.config).to_numpy()
+                r.result = lingam_api.FitResult(
+                    order=order, adjacency=adj, resid_var=rv)
+
+    def _run_fit_bucket(self, shape, part: List[FitRequest]) -> None:
+        with obs_trace.span("serve.fit_bucket", shape=shape, n=len(part)):
+            t0 = time.perf_counter()
+            # Row-major like the facades' input (simulated data is
+            # Fortran ordered, and np.stack keeps that layout).
+            xs = torch.as_tensor(np.stack([
+                np.ascontiguousarray(r.data, dtype=np.float32)
+                for r in part]), device=self.device)
+            order, adj, rv = lingam_batched.fit_many(
+                xs, self.config).to_numpy()
+            for i, r in enumerate(part):
+                r.result = lingam_api.FitResult(
+                    order=order[i], adjacency=adj[i], resid_var=rv[i])
+            obs_metrics.observe("serve.bucket_fill",
+                                len(part) / self.batch_size, kind="fit")
+            obs_metrics.observe("serve.fit_bucket_s",
+                                time.perf_counter() - t0,
+                                m=shape[0], d=shape[1])
 
     # ------------------------------------------------------------------
     # Streaming sessions
@@ -226,6 +260,9 @@ class CausalDiscoveryEngine:
         n_ready = sum(1 for s in self._streams.values() if s.rolling.ready)
         if n_due and (was_due or n_due >= min(self.batch_size, n_ready)):
             return self.flush_streams()
+        if session.due:
+            # Left due, waiting for peers: the one-post deferral.
+            obs_metrics.inc("serve.flush_deferrals", sid=sid)
         return []
 
     def flush_streams(self) -> List[Tuple[str, stream_session.GraphDelta]]:
@@ -243,32 +280,43 @@ class CausalDiscoveryEngine:
         poisoned plan cannot starve its peers.
         """
         self.last_flush_errors.clear()
-        prepared = []
-        for sid, s in self._streams.items():
-            if not s.due:
-                continue
-            try:
-                prepared.append((sid, s, s.rolling.prepare_refit()))
-            except Exception as e:  # noqa: BLE001 - surfaced as data
-                self._flush_error(sid, "prepare", None, e)
-        # One device-to-host copy tells which windows hold non-finite
-        # values; those are held out of the batch (they would fit to NaN).
-        finite = torch.stack([
-            torch.isfinite(p.resid).all() & torch.isfinite(p.resid_cov).all()
-            for _, _, p in prepared]).cpu().tolist() if prepared else []
-        buckets: Dict[object, List] = {}
-        for (sid, s, plan), ok in zip(prepared, finite):
-            if not ok:
-                self._flush_error(sid, "prepare", None, ValueError(
-                    "the window's refit inputs are not finite"))
-                continue
-            key = stream_session.bucket_key(s, plan)
-            buckets.setdefault(key, []).append((sid, s, plan))
+        t_flush = time.perf_counter()
+        due = [(sid, s) for sid, s in self._streams.items() if s.due]
         out: List[Tuple[str, stream_session.GraphDelta]] = []
-        for (shape, config), group in buckets.items():
-            for start in range(0, len(group), self.batch_size):
-                part = group[start:start + self.batch_size]
-                out.extend(self._flush_bucket(shape, config, part))
+        with obs_trace.span("serve.flush", n_due=len(due)):
+            if obs_trace.enabled():
+                now = time.monotonic()
+                for _, s in due:
+                    waited = s.due_wait_s(now)
+                    if waited is not None:
+                        obs_metrics.observe("serve.queue_wait_s", waited)
+            prepared = []
+            for sid, s in due:
+                try:
+                    prepared.append((sid, s, s.rolling.prepare_refit()))
+                except Exception as e:  # noqa: BLE001 - surfaced as data
+                    self._flush_error(sid, "prepare", None, e)
+            # One device-to-host copy tells which windows hold non-finite
+            # values; those are held out of the batch (they would fit to
+            # NaN).
+            finite = torch.stack([
+                torch.isfinite(p.resid).all()
+                & torch.isfinite(p.resid_cov).all()
+                for _, _, p in prepared]).cpu().tolist() if prepared else []
+            buckets: Dict[object, List] = {}
+            for (sid, s, plan), ok in zip(prepared, finite):
+                if not ok:
+                    self._flush_error(sid, "prepare", None, ValueError(
+                        "the window's refit inputs are not finite"))
+                    continue
+                key = stream_session.bucket_key(s, plan)
+                buckets.setdefault(key, []).append((sid, s, plan))
+            for (shape, config), group in buckets.items():
+                for start in range(0, len(group), self.batch_size):
+                    part = group[start:start + self.batch_size]
+                    out.extend(self._flush_bucket(shape, config, part))
+            obs_metrics.observe("serve.flush_s", time.perf_counter() - t_flush)
+            obs_metrics.inc("serve.flushes")
         return out
 
     def _flush_bucket(
@@ -277,32 +325,36 @@ class CausalDiscoveryEngine:
         """One ``fit_many_from_stats`` call over a part of due sessions,
         with per-session error isolation."""
         out: List[Tuple[str, stream_session.GraphDelta]] = []
-        try:
-            results = lingam_batched.fit_many_from_stats(
-                torch.stack([p.resid for _, _, p in part]),
-                torch.stack([p.resid_mean for _, _, p in part]),
-                torch.stack([p.resid_cov for _, _, p in part]),
-                config,
-            ).unbind()
-        except Exception as e:  # noqa: BLE001 - surfaced as data
-            self._flush_error("*", "fit", (shape, config), e)
-            for sid, s, _ in part:
-                try:
-                    out.append((sid, s.refit_now()))
-                except Exception as e2:  # noqa: BLE001
-                    self._flush_error(sid, "fit", (shape, config), e2)
-            return out
-        for (sid, s, plan), result in zip(part, results):
+        with obs_trace.span("serve.flush_bucket", shape=shape, n=len(part)):
+            obs_metrics.observe("serve.bucket_fill",
+                                len(part) / self.batch_size, kind="flush")
             try:
-                fit = stream_window.finish_refit(plan, result)
-                out.append((sid, s.apply_fit(fit)))
-            except Exception as e:  # noqa: BLE001
-                self._flush_error(sid, "finish", (shape, config), e)
+                results = lingam_batched.fit_many_from_stats(
+                    torch.stack([p.resid for _, _, p in part]),
+                    torch.stack([p.resid_mean for _, _, p in part]),
+                    torch.stack([p.resid_cov for _, _, p in part]),
+                    config,
+                ).unbind()
+            except Exception as e:  # noqa: BLE001 - surfaced as data
+                self._flush_error("*", "fit", (shape, config), e)
+                for sid, s, _ in part:
+                    try:
+                        out.append((sid, s.refit_now()))
+                    except Exception as e2:  # noqa: BLE001
+                        self._flush_error(sid, "fit", (shape, config), e2)
+                return out
+            for (sid, s, plan), result in zip(part, results):
+                try:
+                    fit = stream_window.finish_refit(plan, result)
+                    out.append((sid, s.apply_fit(fit)))
+                except Exception as e:  # noqa: BLE001
+                    self._flush_error(sid, "finish", (shape, config), e)
         return out
 
     def _flush_error(self, sid, stage, bucket, error) -> None:
         self.last_flush_errors.append(
             FlushError(sid=sid, stage=stage, bucket=bucket, error=error))
+        obs_metrics.inc("serve.flush_errors", sid=sid, stage=stage)
 
     # ------------------------------------------------------------------
     # Causal queries (effects / interventions / RCA)
@@ -321,15 +373,16 @@ class CausalDiscoveryEngine:
         re-snapshotted from the live session on every call, so a
         re-issued query object sees the current estimate.
         """
-        for q in queries:
-            sid = (
-                q.graph if isinstance(q.graph, str)
-                else getattr(q.graph, "sid", None)
-            )
-            if sid is not None:
-                q.graph = query_lib.FittedGraph.from_session(
-                    self._streams[sid])
-        return self.queries.run(queries)
+        with obs_trace.span("serve.query", n=len(queries)):
+            for q in queries:
+                sid = (
+                    q.graph if isinstance(q.graph, str)
+                    else getattr(q.graph, "sid", None)
+                )
+                if sid is not None:
+                    q.graph = query_lib.FittedGraph.from_session(
+                        self._streams[sid])
+            return self.queries.run(queries)
 
     def poll_alerts(
         self, sid: Optional[str] = None
@@ -349,6 +402,8 @@ class CausalDiscoveryEngine:
         out: List[monitor_lib.DriftAlert] = []
         for s in sessions:
             out.extend(s.unread_alerts.drain())
+        if out:
+            obs_metrics.inc("serve.alerts_polled", len(out))
         return out
 
     def stream_session(self, sid: str) -> stream_session.StreamSession:

@@ -49,6 +49,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+
 from . import stats as stats_lib
 from . import window as window_lib
 
@@ -310,6 +313,15 @@ class GraphHealthMonitor:
                     stat=float(z[s_idx, j]), chunk_index=chunk_index,
                     refit_index=refit_index, candidate_roots=list(cands),
                 ))
+        if obs_trace.enabled():
+            sid = self.sid or "-"
+            if alerts:
+                obs_metrics.inc("monitor.alerts", len(alerts), sid=sid)
+            for a in alerts:
+                obs_metrics.inc("monitor.alerts_by_kind", kind=a.kind,
+                                sid=sid)
+            obs_metrics.gauge("monitor.drift_score", self.max_score(),
+                              sid=sid)
         return alerts
 
     def _root_candidates(self) -> List[Tuple[int, float]]:

@@ -30,6 +30,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import api
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.ring import BoundedRing
 
 from . import monitor as monitor_lib
@@ -194,6 +195,9 @@ class StreamSession:
                 chunk_index=self.n_chunks,
                 refit_index=self.n_refits,
             ))
+        obs_metrics.inc("stream.chunks", sid=self.sid)
+        obs_metrics.gauge("stream.staleness_chunks", self._chunks_since_refit,
+                          sid=self.sid)
         if self.due and self._due_since is None:
             self._due_since = time.monotonic()
         return self.due
@@ -206,6 +210,8 @@ class StreamSession:
             self.alert_history.append(a)
         if alerts:
             self._cadence = self.config.refit_every
+            obs_metrics.gauge("stream.cadence_chunks", self._cadence,
+                              sid=self.sid)
 
     def due_wait_s(self, now: Optional[float] = None) -> Optional[float]:
         """Seconds this session has been due without a refit (None when
@@ -268,6 +274,12 @@ class StreamSession:
                 min(self._cadence * 2, self.config.coast_max) if stable
                 else self.config.refit_every
             )
+            obs_metrics.gauge("stream.cadence_chunks", self._cadence,
+                              sid=self.sid)
+        obs_metrics.inc("stream.refits", sid=self.sid)
+        obs_metrics.inc("stream.refits_by_trigger", trigger=delta.triggered_by,
+                        sid=self.sid)
+        obs_metrics.gauge("stream.staleness_chunks", 0, sid=self.sid)
         return delta
 
     def refit_now(self) -> GraphDelta:

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import api
+from repro_torch.obs import metrics as obs_metrics
 
 from . import stats
 
@@ -296,6 +297,7 @@ class RollingVarLiNGAM:
             self.aug_state = stats.retract(
                 self.aug_state, stats.from_chunk(self._augmented(ebuf)))
             self._lead_tail = evicted[-self.lags:]
+            obs_metrics.inc("stream.retracts")
         self._prev_tail = rows[-self.lags:]
         self.n_pushed += 1
         if (
@@ -320,6 +322,7 @@ class RollingVarLiNGAM:
         for buf in self._window_bufs():
             state = stats.merge(state, stats.from_chunk(self._augmented(buf)))
         self.aug_state = state
+        obs_metrics.inc("stream.reanchors")
 
     def load_state(self, blocks, lead_tail, prev_tail, n_pushed,
                    aug_state) -> None:

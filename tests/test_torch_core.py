@@ -277,6 +277,13 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "0 []", out.stdout
     assert "repro_torch.kernels.pairwise_stats" in modules
+    for name in ("repro_torch.obs.trace", "repro_torch.obs.metrics",
+                 "repro_torch.obs.compile_log", "repro_torch.obs.profile",
+                 "repro_torch.analysis.roofline",
+                 "repro_torch.analysis.report",
+                 "repro_torch.analysis.regress", "repro_torch.core.sharded",
+                 "repro_torch.launch.mesh", "repro_torch.launch.mesh_cells"):
+        assert name in modules
 
 
 def test_scripts_beside_the_port_import_neither_jax_nor_reference():
@@ -285,13 +292,17 @@ def test_scripts_beside_the_port_import_neither_jax_nor_reference():
     root = SRC.parent
     files = sorted([root / "chip_smoke.py",
                     *(root / "benchmarks").glob("torch_*.py"),
-                    *(root / "examples").glob("torch_*.py")])
-    assert len(files) >= 10, files
+                    *(root / "examples").glob("torch_*.py"),
+                    # the port's command-line modules
+                    *(SRC / "repro_torch" / "analysis").glob("*.py"),
+                    *(SRC / "repro_torch" / "launch").glob("mesh*.py")])
+    assert len(files) >= 15, files
     code = (
         "import importlib.util, sys\n"
         f"for i, path in enumerate({[str(f) for f in files]!r}):\n"
         "    spec = importlib.util.spec_from_file_location(f'm{i}', path)\n"
-        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    sys.modules[spec.name] = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(sys.modules[spec.name])\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') or n.startswith('jax'))\n"
         "print(len(bad), bad)\n"
