@@ -67,12 +67,19 @@ def score_tolerance(cm1, cm2, m1, m2, active, atol, col_atol=0.0):
     return torch.where(pair_ok, term, 0.0).sum(dim=1)
 
 
-def parting_tie(x, order_a, order_b, reducer, atol=ATOL_MOMENTS):
+def parting_tie(x, order_a, order_b, reducer, atol=ATOL_MOMENTS,
+                x_other=None):
     """Replay the masked scan on ``x`` along ``order_a`` up to the first
     position p where ``order_b`` parts from it, and compare the two roots'
     scores there. Returns (p, the score gap over the score tolerance that
     moments moved by ``atol`` allow); (None, 0.0) for equal orders. A
-    ratio above 1 means the orders part where the scores do not tie."""
+    ratio above 1 means the orders part where the scores do not tie.
+
+    ``x_other`` is the data ``order_b`` was found on where it is not
+    ``x`` but agrees with it to rounding (a from-scratch window's
+    residuals beside a rolling window's): it is residualized along the
+    same roots, and the tolerance widens to the pairwise and column
+    moment differences the two data show at p."""
     parts = np.nonzero(np.asarray(order_a) != np.asarray(order_b))[0]
     if not len(parts):
         return None, 0.0
@@ -80,13 +87,28 @@ def parting_tie(x, order_a, order_b, reducer, atol=ATOL_MOMENTS):
     active = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
     for step in range(p):
         root = torch.tensor(int(order_a[step]), device=x.device)
+        if x_other is not None:
+            _, _, mu_o, var_o = ordering.step_standardize(x_other, reducer)
+            x_other, _ = ordering.residualize(x_other, active, root, mu_o,
+                                              var_o, reducer)
         _, _, mu, var = ordering.step_standardize(x, reducer)
         x, active = ordering.residualize(x, active, root, mu, var, reducer)
     x_std, c, _, _ = ordering.step_standardize(x, reducer)
     cm = reducer.col_moments(x_std)
     m1, m2 = reducer.moment_rows(x_std, c)
+    col_atol = 0.0
+    if x_other is not None:
+        xo_std, co, _, _ = ordering.step_standardize(x_other, reducer)
+        om1, om2 = reducer.moment_rows(xo_std, co)
+        pair = active[:, None] & active[None, :] & ~torch.eye(
+            len(active), dtype=torch.bool, device=x.device)
+        atol = max(atol, *(float((a - b)[pair].abs().max())
+                           for a, b in ((m1, om1), (m2, om2))))
+        col_atol = max(atol, *(float((a - b)[active].abs().max())
+                               for a, b in zip(
+                                   cm, reducer.col_moments(xo_std))))
     scores = ordering.step_scores(*cm, m1, m2, active)
-    tol = score_tolerance(*cm, m1, m2, active, atol)
+    tol = score_tolerance(*cm, m1, m2, active, atol, col_atol)
     a, b = int(order_a[p]), int(order_b[p])
     gap = abs(float(scores[a] - scores[b]))
     return p, gap / float(tol[a] + tol[b])

@@ -37,6 +37,7 @@ from repro_torch.core import DirectLiNGAM, api, ordering
 from repro_torch.data.simulate import simulate_lingam
 from repro_torch.kernels import pairwise_stats
 
+from benchmarks.torch_common import sync
 from benchmarks.torch_equivalence import parting_tie
 
 QUICK_GRID = [(1_000, 8), (1_000, 16), (5_000, 16), (5_000, 32)]
@@ -67,21 +68,16 @@ def host_cpu() -> dict:
             "machine": platform.machine(), "threads": os.cpu_count()}
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def median_s(fn, device, reps=3):
     """(median seconds of ``reps`` runs after one warm-up, device
     synchronized around each, the last run's result)."""
     fn()
     times = []
     for _ in range(reps):
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         out = fn()
-        _sync(device)
+        sync(device)
         times.append(time.perf_counter() - t0)
     return float(np.median(times)), out
 

@@ -132,7 +132,19 @@ failure of which exits non-zero:
      kernel's fp32 tolerance; one B2 launch per step on each rank, the
      adjacency within 1e-5 where the orders agree (else the gloo error
      is printed);
- 15. last line: {"ok": true, "device": {...}}.
+ 15. the engine's benches (``benchmarks/torch_{tune,stream,bootstrap,
+     drift,infer,sharded,profile}.py``), the kernels' counts set to 0
+     before each and read after it: the tuner's full grid (B1, B2 and B3;
+     B3's sums through the tuner bit-equal to a direct launch and within
+     4e-6 a sample of its plain version), the rolling window against
+     scratch refits at d = 64 (orders equal or parting at a tie), the
+     bootstrap's quick cells (vmap and loop edge probabilities equal),
+     drift detection and cadence at d = 12, queries (batched effects
+     within 1e-5 of the loop's), the 1 x 1, 2 x 2 and 4 x 1 meshes at
+     (2048, 32) (orders equal to the local oracle's or parting at a tie,
+     one B2 launch per step on each rank) and the profile rows; the
+     kernels line carries each kernel's launches per bench;
+ 16. last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1133,6 +1145,159 @@ def mesh_phase(dev, gt, out_dir):
                  f"local plan")
     print(f"phase 14: four ranks in {ranks_s:.1f} s in all")
     return res
+
+
+# Phase 15's engine benches and the kernels each must launch on the card
+# (the sharded ranks' B2 launches are checked from their reports).
+ENGINE_BENCHES = {
+    "tune": ("B1", "B2", "B3"),
+    "stream": ("B1", "B2"),
+    "bootstrap": ("B1",),
+    "drift": ("B2",),
+    "infer": (),
+    "sharded": ("B1",),
+    "profile": ("B1",),
+}
+
+
+def engine_benches_phase(dev, out_dir):
+    """Phase 15: the engine's benches (``benchmarks/torch_*.py``) on the
+    card, each in its quick mode but tune, whose full grid holds the B2
+    row-tile and B3 cells (its quick grid, the reference's, has neither),
+    and sharded, without the 8 x 1 mesh (phase 14 runs the gloo ranks).
+    The kernels' counts are set to 0 before each bench and read after it;
+    a bench fails the script on an exception, a false correctness field,
+    or no launch of a kernel its path runs. Returns {bench: {"launches":
+    {kernel: n}, "seconds": s, "result": the bench's result}}."""
+    import torch
+
+    from benchmarks import (torch_bootstrap, torch_drift, torch_infer,
+                            torch_profile, torch_sharded, torch_stream,
+                            torch_tune)
+    from benchmarks.torch_common import launch_counts
+    from repro_torch.kernels import fused_stats, pairwise_stats
+
+    runs = {
+        "tune": lambda: torch_tune.run(quick=False, device=dev),
+        "stream": lambda: torch_stream.run(quick=True, device=dev),
+        "bootstrap": lambda: torch_bootstrap.run(quick=True, device=dev),
+        "drift": lambda: torch_drift.run(quick=True, device=dev),
+        "infer": lambda: torch_infer.run(quick=True, device=dev),
+        "sharded": lambda: torch_sharded.run(
+            quick=True, device=dev, meshes=("1x1", "2x2", "4x1")),
+        "profile": lambda: torch_profile.run(quick=True, device=dev),
+    }
+    out = {}
+    for name, fn in runs.items():
+        pairwise_stats.launches = pairwise_stats.rows_launches = 0
+        fused_stats.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+        except Exception as e:  # noqa: BLE001 -- any failure fails the phase
+            import traceback
+
+            traceback.print_exc()
+            fail(f"engine bench {name} raised {type(e).__name__}: {e}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        if launches != res["launches"]:
+            fail(f"engine bench {name}: the counters read {launches}, the "
+                 f"bench reports {res['launches']}")
+        missing = [k for k in ENGINE_BENCHES[name] if not launches[k]]
+        if missing:
+            fail(f"engine bench {name} launched no {missing} on the card")
+        out[name] = {"launches": launches, "seconds": seconds, "result": res}
+        print(f"phase 15: bench {name} in {seconds:.1f} s, launches "
+              f"{launches}", flush=True)
+
+    tune_rows = out["tune"]["result"]["rows"]
+    for row in tune_rows:
+        print(f"phase 15: tune {row['op']} {row['backend']} "
+              f"{tuple(row['shape'])}: heuristic {row['heuristic']['us']:.1f}"
+              f" us, tuned {row['tuned']['us']:.1f} us, "
+              f"{row['n_candidates']} candidates, launches {row['launches']}")
+    (b3,) = [r for r in tune_rows if r["op"] == "fused_moment_sums"]
+    chk = b3["b3_check"]
+    print(f"phase 15: B3 through the tuner at {tuple(b3['shape'])}: "
+          f"{b3['tuned']['us']:.1f} us; its sums bit-equal to a direct launch "
+          f"{chk['sums_equal_direct_launch']}, bit-equal to the plain "
+          f"version {chk['sums_equal_plain']}, max off-diagonal err against "
+          f"it {chk['max_abs_err_vs_plain_per_sample']:.3e} per sample "
+          f"(tolerance {chk['tolerance_per_sample']})")
+    if not (chk["sums_equal_direct_launch"] and chk["within_tolerance"]):
+        fail("the tuner's B3 sums disagree with B3")
+    if not b3["launches"]["B3"]:
+        fail("the tuner's B3 cell launched no B3")
+
+    st = out["stream"]["result"]
+    print(f"phase 15: stream d={st['d']}: rolling {st['rolling_per_slide_s']:.4f}"
+          f" s a slide, scratch {st['scratch_per_window_s']:.4f} s, same "
+          f"config {st['scratch_same_config_s']:.4f} s; last window orders "
+          f"equal {st['order_match_last_window']} (parting at "
+          f"{st['parting_step_last_window']}, gap "
+          f"{st['parting_gap_ratio_last_window']:.3f} of the tie tolerance); "
+          f"rolling launches {st['rolling_launches']}")
+    if not st["order_tie_or_match_last_window"]:
+        fail("the rolling window's order parts from the scratch fit's where "
+             "the scores do not tie")
+
+    for row in out["bootstrap"]["result"]["rows"]:
+        print(f"phase 15: bootstrap {row['cell']}: vmap {row['vmap_s']:.3f} "
+              f"s ({row['vmap_launches']}), loop {row['loop_s']:.3f} s "
+              f"({row['loop_launches']}), edge_prob agree "
+              f"{row['edge_prob_agree']}")
+        if not row["edge_prob_agree"]:
+            fail(f"bootstrap {row['cell']}: vmap and loop edge "
+                 f"probabilities differ")
+
+    dr = out["drift"]["result"]
+    print(f"phase 15: drift d={dr['d']}: per kind {dr['per_kind']}, false "
+          f"alarms per chunk {dr['false_alarm_per_chunk']:.4f}, refits "
+          f"fixed {dr['fixed_refits']} ({dr['fixed_refit_s']:.3f} s) against "
+          f"adaptive {dr['adaptive_refits']} ({dr['adaptive_refit_s']:.3f} s)")
+
+    for row in out["infer"]["result"]["rows"]:
+        print(f"phase 15: infer {row['kind']} d={row['d']}: loop "
+              f"{row['loop_s']:.4f} s, batched {row['batched_s']:.4f} s, "
+              f"batched against loop {row['max_rel_diff_batched_vs_loop']:.3e}"
+              f" of max(1, |answer|)")
+        if row["kind"] == "effects" and not (
+                row["max_rel_diff_batched_vs_loop"] <= ATOL_QUERY):
+            fail(f"infer d={row['d']}: batched effects disagree with the loop")
+
+    for row in out["sharded"]["result"]["rows"]:
+        print(f"phase 15: sharded {row['mesh']} ({row['ranks']} ranks, "
+              f"{row['collective_backend']}): order {row['order_s']:.3f} s, "
+              f"fit {row['fit_s']:.3f} s against the oracle "
+              f"{row['oracle_order_s']:.3f} s; orders equal "
+              f"{row['order_matches_oracle']} ({row['order_n_disagree']} "
+              f"positions differ, gap {row['parting_gap_ratio']:.3f} of the "
+              f"tie tolerance); B2 launches per rank "
+              f"{row['b2_launches_per_rank']}")
+        if not row["order_tie_or_match"]:
+            fail(f"sharded {row['mesh']}: the order parts from the oracle's "
+                 f"where the scores do not tie")
+        if any(b != row["d"] for b in row["b2_launches_per_rank"]):
+            fail(f"sharded {row['mesh']}: not one B2 launch per step on "
+                 f"each rank")
+    out["sharded"]["rank_b2"] = sum(sum(r["b2_launches_per_rank"])
+                                    for r in out["sharded"]["result"]["rows"])
+
+    pr = out["profile"]["result"]
+    variants = [r["variant"] for r in pr["kernels"]]
+    print(f"phase 15: profile ({pr['m']}, {pr['d']}): stages "
+          + ", ".join(f"{r['stage']} {r['best_s']:.6f} s" for r in pr["rows"])
+          + "; kernels " + ", ".join(f"{r['variant']} {r['best_s']:.6f} s"
+                                     for r in pr["kernels"]))
+    if "cuda-pair-tile" not in variants:
+        fail("the profile bench has no B1 row")
+    with open(os.path.join(out_dir, "phase15.json"), "w") as f:
+        json.dump({k: v["result"] for k, v in out.items()}, f, indent=1,
+                  default=float)
+    return out
 
 
 def main() -> int:
@@ -2604,11 +2769,24 @@ def main() -> int:
         json.dump({"telemetry": tele, "mesh": mesh}, f, indent=1,
                   default=float)
 
-    # 11. kernels line (printed after phase 12, whose launches it
+    # 15. the engine's benches on the card
+    t0 = time.perf_counter()
+    benches = engine_benches_phase(dev, out_dir)
+    print(f"engine benches phase: {time.perf_counter() - t0:.1f} s")
+
+    def bench_launches(kernel):
+        return {name: b["launches"][kernel] for name, b in benches.items()
+                if b["launches"][kernel]}
+
+    (b3_tuned,) = [r for r in benches["tune"]["result"]["rows"]
+                   if r["op"] == "fused_moment_sums"]
+
+    # 11. kernels line (printed after phases 12 and 15, whose launches it
     # reports): launches are those of each kernel's path (the
     # lingam-1m-100 fit, the rolling stream, B3's entry point; for B1 also
     # the vmap bootstrap and the serving engine's fit burst, for B2 the
-    # serving engine's batched refits).
+    # serving engine's batched refits), and under bench_launches each
+    # engine bench's own (phase 15).
     def regs(*entries):
         return {e: ptxas[e] for e in entries if e in ptxas}
 
@@ -2654,6 +2832,7 @@ def main() -> int:
         "gene_bound_ms": gene_bound[0],
         "gene_shape": gene_shape,
         "gene_max_abs_err": gene_err,
+        "bench_launches": bench_launches("B1"),
         "ptxas": b12_ptxas,
     }, {
         "name": "pairwise_moment_sums_rows",
@@ -2688,6 +2867,8 @@ def main() -> int:
         "mesh_launches": mesh["mesh_b2"],
         "mesh_1x1_s": mesh["times"]["mesh"],
         "mesh_local_s": mesh["times"]["local"],
+        "bench_launches": {**bench_launches("B2"),
+                           "sharded_ranks": benches["sharded"]["rank_b2"]},
         "ptxas": b12_ptxas,
     }, {
         "name": "fused_moment_sums",
@@ -2706,6 +2887,13 @@ def main() -> int:
         "bfloat16_bound_ms": fused["bfloat16"]["bound"][0],
         "bfloat16_max_abs_err": fused["bfloat16"]["err"],
         "shape": f"{m}x{d}",
+        "bench_launches": bench_launches("B3"),
+        "tuner_us": b3_tuned["tuned"]["us"],
+        "tuner_shape": "x".join(map(str, b3_tuned["shape"])),
+        "tuner_bound_ms": moment_bound_ms(
+            "fused_moment_sums", tuple(b3_tuned["shape"]), peaks)[0],
+        "tuner_max_abs_err_per_sample":
+            b3_tuned["b3_check"]["max_abs_err_vs_plain_per_sample"],
         "ptxas": regs("fused_partials<float>", "fused_partials<bfloat16>",
                       "reduce_splits"),
     }]}))
@@ -2714,7 +2902,7 @@ def main() -> int:
           f"{worst:.3e}, batched B1 {worst_batched:.3e}, B2 {worst_rows:.3e} "
           f"per sample, B3 {worst_fused:.3e} per sample)")
 
-    # 15. last line
+    # 16. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,13 @@ _REPO_ROOT = Path(__file__).resolve().parents[3]
 # BENCH_torch_<stem>.json. The equivalence and NOTEARS benches measure
 # accuracy (F1, SHD), not time, and are not tracked here.
 STEM_TO_BENCH = {
+    "bootstrap": "bootstrap",
+    "sharded": "sharded",
+    "stream": "stream",
+    "kernels": "tune",
+    "infer": "infer",
+    "drift": "drift",
+    "profile": "profile",
     "speedup": "speedup",
     "gene": "gene",
     "stocks": "stocks",

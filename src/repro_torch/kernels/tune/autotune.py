@@ -5,7 +5,9 @@ pair-block edge of ``pairwise_stats.TILES``, the only tunable field (see
 the bit-parity contract in :mod:`repro_torch.kernels.tune.registry`).
 The search runs each candidate once through the real wrappers (an
 explicit ``plan``, so dispatch is bypassed, not re-entered) on synthetic
-standardized data of the bucket's shape, checks that every candidate's
+standardized data of the bucket's shape (raw data with its mean and 1/std
+for the fused kernel B3, whose one fixed plan is measured as it is: it
+has nothing tunable), checks that every candidate's
 sums are bit-identical to the heuristic plan's, then times each one
 (:func:`measure_plan`: on the card the device time of back-to-back runs
 queued behind a device sleep, so a small kernel is timed without the
@@ -133,10 +135,35 @@ def _bench_inputs(shape, batch: int, device, seed: int = 0):
     return torch.stack(xs), torch.stack(cs)
 
 
+def fused_bench_inputs(shape, device, seed: int = 0):
+    """Kernel B3's inputs for a (tile, d, m) shape, on ``device``: raw
+    (m, d) data, its per-variable mean and 1/std (ddof=0), and the
+    correlation of the data they standardize, as the reference's
+    autotuner builds them."""
+    from .. import ops
+
+    _, d, m = shape
+    rng = np.random.default_rng(seed)
+    x_raw = torch.from_numpy(
+        rng.laplace(size=(m, d)).astype(np.float32)).to(device)
+    mu = x_raw.mean(dim=0)
+    rstd = 1.0 / x_raw.std(dim=0, unbiased=False).clamp_min(1e-12)
+    c = ops.correlation((x_raw - mu) * rstd).contiguous()
+    return x_raw, mu, rstd, c
+
+
 def _bench_fn(op: str, shape, chunk, batch: int, device):
     """``run(plan) -> (S1, S2)`` for one op on inputs built once."""
     from .. import ops
 
+    if op == "fused_moment_sums":
+        # B3 has nothing tunable: its one plan is the fixed "cuda-fused"
+        # launch, which on a CPU tensor runs the plain version.
+        if batch != 1:
+            raise ValueError("kernel B3 has no batch axis")
+        x_raw, mu, rstd, c = fused_bench_inputs(shape, device)
+        return lambda plan: ops.fused_moment_rows(x_raw, mu, rstd, c, 0,
+                                                  shape[0])
     x, c = _bench_inputs(shape, batch, device)
 
     def backend(plan):  # the CUDA variant's wrappers take CPU tensors too

@@ -15,7 +15,7 @@ and ``chip_smoke.py``'s four ranks on one card.
     of the device's work with the kernels' launch counts;
   * ``"order"`` -- ``sharded_causal_order`` on ``simulate_lingam(m, d,
     seed)`` over the mesh ``mesh`` (``sample_axes``, ``chunk``,
-    ``fused_standardize``);
+    ``fused_standardize``); ``"timed": true`` as for a fit;
   * ``"engine"`` -- the serving engine's mesh regime on ``n`` datasets
     ``simulate_lingam(m, d, seed=s)``, each beside ``fit_fn`` on that
     dataset alone (keys ``KEY/s`` and ``KEY/s/direct``);
@@ -27,7 +27,7 @@ Each rank first checks that the backend carries ``all_reduce`` and
 ``all_gather_into_tensor`` on the device's tensors; if it does not, the
 error is recorded and no cell runs. Rank r writes ``rank{r}.npz`` (every
 result array under ``KEY/NAME``) and ``rank{r}.json`` (the collective
-check, and each timed fit's seconds and B1/B2 launches), then prints
+check, and each timed cell's seconds and B1/B2 launches), then prints
 ``RANK_DONE r``. On a card every rank takes card ``LOCAL_RANK`` modulo
 the number of cards: on one card the ranks share it (over gloo; NCCL
 will not put two ranks on one card).
@@ -90,6 +90,26 @@ def collectives_ok(dev) -> str:
     return "ok"
 
 
+def _run(cell, dev, report, fn):
+    """``fn()`` once; with ``"timed"`` a warm-up run first, then the run
+    timed to the end of the device's work (all ranks starting together)
+    with the kernels' launch counts, into ``report[cell["key"]]``."""
+    timed = cell.get("timed")
+    if timed:
+        fn()  # warm
+        pairwise_stats.launches = pairwise_stats.rows_launches = 0
+        _sync(dev)
+        dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    if timed:
+        report[cell["key"]] = {"s": time.perf_counter() - t0,
+                               "b1": pairwise_stats.launches,
+                               "b2": pairwise_stats.rows_launches}
+    return out
+
+
 def run_cell(cell, dev, res, report):
     """Run one cell on this rank: arrays into ``res``, timings into
     ``report``."""
@@ -99,29 +119,18 @@ def run_cell(cell, dev, res, report):
                                seed=cell["seed"]).data, dev)
         cfg = api.FitConfig(**cell.get("config", {}),
                             partition=api.Partition(**cell["partition"]))
-        if cell.get("timed"):
-            api.fit_fn(x, cfg)  # warm
-            pairwise_stats.launches = pairwise_stats.rows_launches = 0
-            _sync(dev)
-            dist.barrier()
-        t0 = time.perf_counter()
-        fit = api.fit_fn(x, cfg)
-        _sync(dev)
-        if cell.get("timed"):
-            report[key] = {"s": time.perf_counter() - t0,
-                           "b1": pairwise_stats.launches,
-                           "b2": pairwise_stats.rows_launches}
+        fit = _run(cell, dev, report, lambda: api.fit_fn(x, cfg))
         for name, leaf in zip(LEAVES, _leaves(fit)):
             res[f"{key}/{name}"] = leaf
     elif kind == "order":
         x = _x(simulate_lingam(m=cell["m"], d=cell["d"],
                                seed=cell["seed"]).data, dev)
         mesh = launch_mesh.mesh_from_spec(cell["mesh"], dev.type)
-        res[key] = sharded_causal_order(
+        res[key] = _run(cell, dev, report, lambda: sharded_causal_order(
             x, mesh, sample_axes=tuple(cell.get("sample_axes", ("data",))),
             chunk=cell["chunk"],
             fused_standardize=cell.get("fused_standardize", False),
-        ).cpu().numpy()
+        )).cpu().numpy()
     elif kind == "engine":
         cfg = api.FitConfig(**cell.get("config", {}),
                             partition=api.Partition(**cell["partition"]))

@@ -21,7 +21,8 @@ drift alert delivered once, and effect answers within 1e-5 of the direct
 call. The paper's rival estimators on the card held to their DAGs as on
 the CPU (GOLEM's steps within 1e-4 of the CPU's), SVGD within 1e-5 of
 the CPU's, one speed-up row with one B1 launch per step, RCA past one
-slab within 1e-5 of the CPU's, and a NaN post refused.
+slab within 1e-5 of the CPU's, a NaN post refused, and B3 timed through
+the autotuner's runner (its sums a direct launch's bit for bit).
 """
 
 import os
@@ -370,6 +371,33 @@ def test_cuda_dispatch_keys_the_card_and_records_a_search(cuda_device,
     assert all(m.seconds > 0 for m in tuned.measurements)
     hit = registry.dispatch("pairwise_moments", (4000, 487), table=table)
     assert hit == tuned.best and hit.tile in pairwise_stats.TILES
+
+
+@pytest.mark.gpu
+def test_cuda_autotune_times_b3_through_its_runner(cuda_device, tmp_path):
+    """The autotuner's B3 runner launches the fused kernel: its one plan
+    is timed, and the sums it timed are a direct launch's bit for bit and
+    within 4e-6 a sample of the plain version."""
+    shape = (8, 64, 1024)
+    table = cache.TuneTable(default_path=os.devnull,
+                            overlay_path_=str(tmp_path / "t.json"))
+    before = fused_stats.launches
+    tuned = autotune.autotune_op("fused_moment_sums", shape, table=table,
+                                 repeats=2)
+    assert fused_stats.launches > before
+    assert tuned.best.variant == "cuda-fused"
+    assert len(tuned.measurements) == 1 and tuned.measurements[0].seconds > 0
+    timed = autotune._bench_fn("fused_moment_sums", shape, None, 1,
+                               cuda_device)(tuned.best)
+    x_raw, mu, rstd, c = autotune.fused_bench_inputs(shape, cuda_device)
+    direct = ops.fused_moment_rows(x_raw, mu, rstd, c, 0, shape[0])
+    plain = fused_stats.fused_moment_sums_plain(x_raw, mu, rstd, c, row0=0,
+                                                rows=shape[0])
+    off = ~torch.eye(shape[0], shape[1], dtype=torch.bool,
+                     device=cuda_device)
+    for a, b, p in zip(timed, direct, plain):
+        assert torch.equal(a, b)
+        assert float((a - p)[off].abs().max()) <= 4e-6 * shape[2]
 
 
 @pytest.mark.gpu

@@ -440,3 +440,63 @@ def test_default_plans_file_loads_and_validates():
         plan = registry.Plan.from_entry(op, entry)
         assert registry.get_variant(op, "cuda").validate(plan, None), key
         assert table.lookup(key) == entry
+
+
+def test_autotune_runs_the_fused_kernel_b3(tmp_path):
+    """B3 has a benchmark runner (the reference's ``_bench_fn`` times
+    ``fused_moment_rows`` on raw X and its mean and 1/std): its one fixed
+    plan is measured and recorded, and the sums it timed equal
+    ``ops.fused_moment_rows``'s on the same inputs (on the CPU the plain
+    version, bit for bit)."""
+    shape = (8, 64, 1024)
+    table = _tmp_table(tmp_path)
+    tuned = autotune.autotune_op("fused_moment_sums", shape, device="cpu",
+                                 table=table, persist=False)
+    assert tuned.best.variant == "cuda-fused" and tuned.best.tile == 0
+    assert [m.plan.source for m in tuned.measurements] == ["heuristic"]
+    assert tuned.measurements[0].seconds > 0.0
+    assert table.lookup(_key("fused_moment_sums", shape))["variant"] == \
+        "cuda-fused"
+    timed = autotune._bench_fn("fused_moment_sums", shape, None, 1,
+                               "cpu")(tuned.best)
+    x_raw, mu, rstd, c = autotune.fused_bench_inputs(shape, "cpu")
+    assert x_raw.shape == (1024, 64)
+    np.testing.assert_allclose(
+        ((x_raw - mu) * rstd).std(dim=0, unbiased=False).numpy(), 1.0,
+        rtol=1e-5)
+    direct = ops.fused_moment_rows(x_raw, mu, rstd, c, 0, 8)
+    for a, b in zip(timed, direct):
+        assert a.shape == (8, 64) and torch.equal(a, b)
+    with pytest.raises(ValueError, match="no batch axis"):
+        autotune._bench_fn("fused_moment_sums", shape, None, 2, "cpu")
+
+
+def test_regress_tracks_every_stem_of_the_reference():
+    """The port's tracker knows the reference's stems (its seven engine
+    benches) besides speedup, gene and stocks, each mapped to a bench of
+    the port's runner, and it classifies the engine benches' keys as the
+    reference does: times and rates are metrics; agreement flags,
+    counts and tolerances are not."""
+    from benchmarks import torch_run
+    from repro.analysis import regress as jregress
+    from repro_torch.analysis import regress
+
+    assert set(jregress.STEM_TO_BENCH) <= set(regress.STEM_TO_BENCH)
+    for stem, bench in jregress.STEM_TO_BENCH.items():
+        assert regress.STEM_TO_BENCH[stem] == bench
+    assert {"speedup", "gene", "stocks"} <= set(regress.STEM_TO_BENCH)
+    for stem, bench in regress.STEM_TO_BENCH.items():
+        assert torch_run.ARTIFACTS[bench] == stem
+    keys = ("rolling_per_slide_s", "order_step_ms", "per_query_us_loop",
+            "vmap_fits_per_s", "speedup_vs_scratch", "speedup", "us",
+            "edge_prob_agree", "order_match_last_window", "order_n_disagree",
+            "false_alarm_per_chunk", "max_rel_diff_batched_vs_loop",
+            "tolerance_per_sample", "parting_gap_ratio", "fixed_refits")
+    for key in keys:
+        assert regress._direction(key) == jregress._direction(key), key
+    assert regress._direction("fixed_refit_s") == ("lower", 1.0)
+    assert regress._direction("speedup_same_config") == ("higher", 1.0)
+    payload = {"rows": [{"cell": "c", "loop_s": 1.0, "edge_prob_agree": True,
+                         "order_match_last_window": False}]}
+    assert regress.collect_metrics(payload) == {"rows[cell=c].loop_s":
+                                                ("lower", 1.0)}
