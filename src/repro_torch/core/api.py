@@ -362,11 +362,15 @@ def fit_impl_from_stats(x, mean, cov, config: FitConfig) -> FitResult:
     (x (b, m, d), mean (b, d), cov (b, d, d)) the ordering runs batched
     and the pruning per element, as :func:`fit_impl`."""
     cov = cov.float()
-    order = _order_for_config(standardize_from_stats(x, mean, cov), config)
-    if x.dim() == 3:
-        return FitResult.stack([_finish_from_cov(ck, ok, config)
-                                for ck, ok in zip(cov, order)])
-    return _finish_from_cov(cov, order, config)
+    with obs.span("fit.ordering", d=x.shape[-1],
+                  compaction=config.compaction):
+        order = _order_for_config(standardize_from_stats(x, mean, cov),
+                                  config)
+    with obs.span("fit.pruning", method=config.prune_method):
+        if x.dim() == 3:
+            return FitResult.stack([_finish_from_cov(ck, ok, config)
+                                    for ck, ok in zip(cov, order)])
+        return _finish_from_cov(cov, order, config)
 
 
 def fit_from_stats(

@@ -29,6 +29,11 @@ whole batch. So element k takes the same steps as a fit of x[k] alone,
 with the same moments (the kernel's sums are bit for bit those of a
 launch on x[k]) and the same float64 reductions rounded to float32.
 
+With telemetry on, each step's phases are spans (``order.standardize``,
+``order.scores``, ``order.residualize``; the moment call between them
+is ``kernels.dispatch`` and ``kernels.moments``) and each stage's gather
+in the staged ordering is ``order.compact``.
+
 :func:`compact_order_impl` shrinks the buffer to the surviving columns
 in stages and returns the same order as :func:`masked_order_impl`. That
 needs every per-column quantity to come out the same at every buffer
@@ -45,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 
 from . import measures
 
@@ -174,13 +180,16 @@ def ordering_step(x, active, reducer):
       (x_new, active_new, root): residualized data, updated mask, and
       the column chosen this step as a 0-d device tensor, or (b,).
     """
-    x_std, c, mu, var = reducer.standardize(x)
+    with obs_trace.span("order.standardize"):
+        x_std, c, mu, var = reducer.standardize(x)
     rows1, rows2 = reducer.moment_rows(x_std, c)
     m1, m2 = reducer.gather_rows(rows1), reducer.gather_rows(rows2)
-    cm1, cm2 = reducer.col_moments(x_std)
-    k_list = step_scores(cm1, cm2, m1, m2, active)
-    root = torch.argmax(k_list, dim=-1)  # first maximum, as jnp.argmax
-    x_new, active_new = residualize(x, active, root, mu, var, reducer)
+    with obs_trace.span("order.scores"):
+        cm1, cm2 = reducer.col_moments(x_std)
+        k_list = step_scores(cm1, cm2, m1, m2, active)
+        root = torch.argmax(k_list, dim=-1)  # first maximum, as jnp.argmax
+    with obs_trace.span("order.residualize"):
+        x_new, active_new = residualize(x, active, root, mu, var, reducer)
     return x_new, active_new, root
 
 
@@ -278,17 +287,18 @@ def compact_order_impl(x, reducer, *, d=None, frac=0.25, min_stage=8):
         keep = w_logical - n_steps
         if keep:
             keep_pad = ops._round_up(keep, col_multiple)
-            # Surviving columns in ascending order (inactive sort last).
-            cols = torch.arange(width, device=x.device)
-            idx = torch.argsort(torch.where(active, cols, width),
-                                dim=-1)[..., :keep_pad]
-            x = torch.gather(x, -1, idx[..., None, :].expand(
-                *x.shape[:-1], keep_pad))
-            labels = torch.gather(labels, -1, idx)
-            active = (torch.arange(keep_pad, device=x.device) < keep
-                      ).expand(*lead, keep_pad)
-            if keep_pad != keep:
-                x = torch.where(active[..., None, :], x, 0.0)
+            with obs_trace.span("order.compact"):
+                # Surviving columns in ascending order (inactive sort last).
+                cols = torch.arange(width, device=x.device)
+                idx = torch.argsort(torch.where(active, cols, width),
+                                    dim=-1)[..., :keep_pad]
+                x = torch.gather(x, -1, idx[..., None, :].expand(
+                    *x.shape[:-1], keep_pad))
+                labels = torch.gather(labels, -1, idx)
+                active = (torch.arange(keep_pad, device=x.device) < keep
+                          ).expand(*lead, keep_pad)
+                if keep_pad != keep:
+                    x = torch.where(active[..., None, :], x, 0.0)
             width = keep_pad
     return torch.cat(parts, dim=-1)
 

@@ -26,6 +26,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 from . import api
 
 
@@ -88,7 +90,8 @@ class VarLiNGAM:
         device = api.resolve_device(self.device)
         x = torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32),
                             device=device)
-        mats, _, resid = estimate_var(x, self.lags)
+        with obs.span("var.estimate", lags=self.lags):
+            mats, _, resid = estimate_var(x, self.lags)
         result = api.fit_fn(resid, self.to_config())
         b0 = result.adjacency
         eye = torch.eye(b0.shape[0], dtype=b0.dtype, device=b0.device)

@@ -38,6 +38,12 @@ launch over a batch grid axis, the axis the TPU kernel gets under
 those of the launch on x_std[k] alone, bit for bit; a 2-D input is the
 batch of one.
 
+With telemetry on, each wrapper's computation (the launch on the card,
+the plain version on the CPU) is a ``kernels.moments`` span with the
+wrapper's ``op``, the ``shape`` (b, m, d), the ``rows`` of the tile and
+the pair-block ``tile`` (None on the CPU); the launch plan's decision
+before it is its sibling ``kernels.dispatch``.
+
 ``pairwise_moment_sums_plain`` is the kernel's plain-torch version: the
 same split plan, the same 128-wide sample sub-sums, the same fixed order
 of splits (the slab wrapper's plain version adds it slab by slab), and
@@ -55,6 +61,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.obs import trace as obs_trace
 
 from . import build
 from .nonlinearity import nonlinear_terms
@@ -329,6 +337,17 @@ def _plan_tile(op, shape, x_std, tune, plan, chunk=None) -> int:
     return plan.tile
 
 
+def _moments_span(op, x_std, rows, tile=None):
+    """The ``kernels.moments`` span of one wrapper call; its attributes
+    are built only when telemetry is on."""
+    if not obs_trace.enabled():
+        return obs_trace.span("kernels.moments")
+    m, d = x_std.shape[-2:]
+    b = x_std.shape[0] if x_std.dim() == 3 else 1
+    return obs_trace.span("kernels.moments", op=op, shape=(b, m, d),
+                          rows=rows, tile=tile)
+
+
 def pairwise_moments(x_std, c, *, n_split=None, tune="cache", plan=None):
     """Pairwise residual moments (M1, M2), each (d, d) float32 means.
 
@@ -348,14 +367,16 @@ def pairwise_moments(x_std, c, *, n_split=None, tune="cache", plan=None):
     inv_m = float(np.float32(1.0 / m))  # the reference's f32 1/m
     if x_std.is_cuda:
         tile = _plan_tile("pairwise_moments", (m, d), x_std, tune, plan)
-        out = _launch_sums(x_std, c, 0, d, slab_plan(m, n_split=n_split),
-                           inv_m, tile)
+        with _moments_span("pairwise_moments", x_std, d, tile):
+            out = _launch_sums(x_std, c, 0, d, slab_plan(m, n_split=n_split),
+                               inv_m, tile)
         launches += 1
         return out
     if x_std.device.type != "cpu":
         raise ValueError(f"no pairwise-moment kernel for {x_std.device}")
-    s1, s2 = pairwise_moment_sums_plain(x_std, c, n_split=n_split)
-    return s1 * inv_m, s2 * inv_m
+    with _moments_span("pairwise_moments", x_std, d):
+        s1, s2 = pairwise_moment_sums_plain(x_std, c, n_split=n_split)
+        return s1 * inv_m, s2 * inv_m
 
 
 def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None,
@@ -380,14 +401,16 @@ def pairwise_moment_sums_rows(x_std, c, row0, rows, *, n_split=None,
         m, d = x_std.shape[-2:]
         tile = _plan_tile("pairwise_moment_sums_rows", (rows, d, m), x_std,
                           tune, plan)
-        out = _launch_sums(x_std, c, row0, rows,
-                           slab_plan(m, n_split=n_split), 1.0, tile)
+        with _moments_span("pairwise_moment_sums_rows", x_std, rows, tile):
+            out = _launch_sums(x_std, c, row0, rows,
+                               slab_plan(m, n_split=n_split), 1.0, tile)
         rows_launches += 1
         return out
     if x_std.device.type != "cpu":
         raise ValueError(f"no pairwise-moment kernel for {x_std.device}")
-    return pairwise_moment_sums_plain(x_std, c, row0=row0, rows=rows,
-                                      n_split=n_split)
+    with _moments_span("pairwise_moment_sums_rows", x_std, rows):
+        return pairwise_moment_sums_plain(x_std, c, row0=row0, rows=rows,
+                                          n_split=n_split)
 
 
 def pairwise_moment_sums_slabs(x_std, c, slab, *, row0=0, rows=None,
@@ -412,13 +435,15 @@ def pairwise_moment_sums_slabs(x_std, c, slab, *, row0=0, rows=None,
     if x_std.is_cuda:
         tile = _plan_tile("pairwise_moment_sums_chunked", (m, d), x_std,
                           tune, plan, chunk=slabs.slab)
-        out = _launch_sums(x_std, c, row0, rows, slabs, 1.0, tile)
+        with _moments_span("pairwise_moment_sums_slabs", x_std, rows, tile):
+            out = _launch_sums(x_std, c, row0, rows, slabs, 1.0, tile)
         rows_launches += 1
         return out
     if x_std.device.type != "cpu":
         raise ValueError(f"no pairwise-moment kernel for {x_std.device}")
-    return sum_over_slabs(x_std, slabs.slab, lambda xs: (
-        pairwise_moment_sums_plain(xs, c, row0=row0, rows=rows)))
+    with _moments_span("pairwise_moment_sums_slabs", x_std, rows):
+        return sum_over_slabs(x_std, slabs.slab, lambda xs: (
+            pairwise_moment_sums_plain(xs, c, row0=row0, rows=rows)))
 
 
 def sum_over_slabs(x_std, slab, sums):

@@ -55,7 +55,6 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.obs import profile as obs_profile
 from repro_torch.obs import trace as obs_trace
 
 from .. import pairwise_stats
@@ -324,8 +323,6 @@ def dispatch(
     # Per-variant dispatch counts and tuned-vs-heuristic provenance.
     obs_metrics.inc("kernels.dispatch", op=op, backend=plan.backend,
                     variant=plan.variant, source=plan.source)
-    obs_profile.note_plan(op, shape, variant=plan.variant,
-                          source=plan.source, batch=batch)
     return plan
 
 

@@ -529,23 +529,6 @@ def call(fn, *args, op: str, shape=None, config=None, **kwargs):
     return out
 
 
-def note_plan(op: str, shape, *, variant: str, source: str,
-              batch: int = 1) -> None:
-    """Record a dispatch decision's analytic cost as gauges.
-
-    Called from ``kernels.tune.registry.dispatch`` (once per launch plan
-    decision): the plan's modelled operations and intensity become
-    queryable next to the measured records."""
-    if not _ENABLED:
-        return
-    a = analytic_cost(op, shape, batch=batch)
-    if a is not None:
-        metrics.gauge("profile.plan_intensity", a["intensity"],
-                      op=op, variant=variant, source=source)
-        metrics.gauge("profile.plan_flops", a["flops"],
-                      op=op, variant=variant, source=source)
-
-
 def records() -> List[CostRecord]:
     """Every captured record (insertion order)."""
     with _lock:
@@ -583,12 +566,15 @@ def reset() -> None:
 def device_trace(log_dir: str):
     """A ``torch.profiler`` window (host and, on a card, device activity)
     whose Chrome trace is written to ``<log_dir>/device_trace.json`` on
-    exit. For its duration every host span is mirrored into a
-    ``torch.profiler.record_function`` of the same name, so the span
-    tree (``obs.format_tree`` / ``write_chrome_trace``) and the kernels
-    line up by name. Yields the profiler (``key_averages()``); yields
-    None and records nothing when profiling is off. Span mirroring also
-    needs spans, i.e. ``obs.enable()``.
+    exit, and the window's span trees (the roots that started in it,
+    :func:`repro_torch.obs.trace.write_chrome_trace`) to
+    ``<log_dir>/spans.json``. For its duration every host span is
+    mirrored into a ``torch.profiler.record_function`` of the same name,
+    so the kernels sit under the spans' names in the one file, and the
+    spans' attributes are in the other, on the same clock (``ts`` plus
+    each file's ``baseTimeNanoseconds``). Yields the profiler
+    (``key_averages()``); yields None and records nothing when profiling
+    is off. Span mirroring also needs spans, i.e. ``obs.enable()``.
     """
     if not _ENABLED:
         yield None
@@ -600,9 +586,17 @@ def device_trace(log_dir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     trace.set_annotation_hook(record_function)
+    t_start = time.time_ns()
     try:
-        with profile(activities=activities) as prof:
+        # The window's own range takes the set-up cost of a process's
+        # first range (up to a millisecond between its start and its
+        # return), which would otherwise put the first span's start that
+        # far after its mirror's.
+        with profile(activities=activities) as prof, \
+                record_function("obs.device_trace"):
             yield prof
     finally:
         trace.set_annotation_hook(None)
     prof.export_chrome_trace(os.path.join(log_dir, "device_trace.json"))
+    trace.write_chrome_trace(os.path.join(log_dir, "spans.json"),
+                             since_ns=t_start)

@@ -22,7 +22,10 @@ returns a shared no-op context manager (one flag test, no allocation).
 
 Completed root spans are kept in a bounded ring (newest last); render
 them with :func:`format_tree`, or export them with
-:func:`to_chrome_trace` / :func:`write_chrome_trace`.
+:func:`to_chrome_trace` / :func:`write_chrome_trace`. Each span's start
+is also kept on the clock ``torch.profiler`` reports (Unix-epoch
+nanoseconds, ``time.time_ns()``), so an exported file lays over the
+profiler's trace of the same window.
 """
 
 from __future__ import annotations
@@ -97,14 +100,16 @@ class Span:
     """One timed host region. Use via :func:`span`, not directly."""
 
     __slots__ = (
-        "name", "attrs", "traced", "t0", "duration_s", "children", "_ann",
+        "name", "attrs", "traced", "t0", "t0_ns", "duration_s", "children",
+        "_ann",
     )
 
     def __init__(self, name: str, attrs: Dict[str, Any]):
         self.name = name
         self.attrs = attrs
         self.traced = False
-        self.t0 = 0.0
+        self.t0 = 0.0       # time.perf_counter(): the duration's clock
+        self.t0_ns = 0      # time.time_ns(): the profiler's clock
         self.duration_s = 0.0
         self.children: List["Span"] = []
         self._ann = None
@@ -120,6 +125,7 @@ class Span:
             self._ann = _annotation_hook(self.name)
             self._ann.__enter__()
         _stack.spans.append(self)
+        self.t0_ns = time.time_ns()
         self.t0 = time.perf_counter()
         return self
 
@@ -209,18 +215,24 @@ def format_tree(last: Optional[int] = None) -> str:
     return "\n".join(lines) if lines else "(no spans recorded)"
 
 
-def to_chrome_trace(last: Optional[int] = None) -> Dict[str, Any]:
+def to_chrome_trace(last: Optional[int] = None, *,
+                    since_ns: Optional[int] = None) -> Dict[str, Any]:
     """Finished span trees as Chrome/Perfetto trace-event JSON.
 
     Every span becomes one complete ("ph": "X") event with microsecond
     timestamps rebased to the earliest recorded root, so the file drops
-    straight into ``chrome://tracing`` / https://ui.perfetto.dev. Span
-    attributes land in ``args`` (stringified); spans entered while
-    capturing keep their ``traced`` tag as the event category
-    (``"capture"``).
+    straight into ``chrome://tracing`` / https://ui.perfetto.dev. As in
+    ``torch.profiler``'s export, ``baseTimeNanoseconds`` is that root's
+    start on the Unix-epoch clock: ``ts * 1e3 + baseTimeNanoseconds`` is
+    a span's start in the profiler's nanoseconds. Span attributes land
+    in ``args`` (stringified); spans entered while capturing keep their
+    ``traced`` tag as the event category (``"capture"``). ``since_ns``
+    keeps only the roots that started at or after it.
     """
     spans = roots(last)
-    base = min((s.t0 for s in spans), default=0.0)
+    if since_ns is not None:
+        spans = [s for s in spans if s.t0_ns >= since_ns]
+    base = min((s.t0_ns for s in spans), default=0)
     events: List[Dict[str, Any]] = []
 
     def emit(s: Span) -> None:
@@ -228,7 +240,7 @@ def to_chrome_trace(last: Optional[int] = None) -> Dict[str, Any]:
             "name": s.name,
             "cat": "capture" if s.traced else "host",
             "ph": "X",
-            "ts": (s.t0 - base) * 1e6,
+            "ts": (s.t0_ns - base) / 1e3,
             "dur": s.duration_s * 1e6,
             "pid": 0,
             "tid": 0,
@@ -239,13 +251,15 @@ def to_chrome_trace(last: Optional[int] = None) -> Dict[str, Any]:
 
     for s in spans:
         emit(s)
-    return {"traceEvents": events, "displayTimeUnit": "ms"}
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "baseTimeNanoseconds": base}
 
 
-def write_chrome_trace(path: str, last: Optional[int] = None) -> str:
+def write_chrome_trace(path: str, last: Optional[int] = None, *,
+                       since_ns: Optional[int] = None) -> str:
     """Serialize :func:`to_chrome_trace` to ``path``; returns the path."""
     import json
 
     with open(path, "w") as f:
-        json.dump(to_chrome_trace(last), f, indent=1)
+        json.dump(to_chrome_trace(last, since_ns=since_ns), f, indent=1)
     return path

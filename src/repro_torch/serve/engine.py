@@ -293,7 +293,9 @@ class CausalDiscoveryEngine:
             prepared = []
             for sid, s in due:
                 try:
-                    prepared.append((sid, s, s.rolling.prepare_refit()))
+                    with obs_trace.span("stream.prepare", sid=sid):
+                        plan = s.rolling.prepare_refit()
+                    prepared.append((sid, s, plan))
                 except Exception as e:  # noqa: BLE001 - surfaced as data
                     self._flush_error(sid, "prepare", None, e)
             # One device-to-host copy tells which windows hold non-finite
@@ -345,8 +347,9 @@ class CausalDiscoveryEngine:
                 return out
             for (sid, s, plan), result in zip(part, results):
                 try:
-                    fit = stream_window.finish_refit(plan, result)
-                    out.append((sid, s.apply_fit(fit)))
+                    with obs_trace.span("stream.finish", sid=sid):
+                        fit = stream_window.finish_refit(plan, result)
+                        out.append((sid, s.apply_fit(fit)))
                 except Exception as e:  # noqa: BLE001
                     self._flush_error(sid, "finish", (shape, config), e)
         return out

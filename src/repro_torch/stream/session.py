@@ -31,6 +31,7 @@ import numpy as np
 
 from repro_torch.core import api
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.ring import BoundedRing
 
 from . import monitor as monitor_lib
@@ -185,7 +186,10 @@ class StreamSession:
         against the served graph; fired alerts land in the session's
         alert rings and make it due.
         """
-        chunk_state = self.rolling.push(rows)
+        with obs_trace.span("stream.absorb", sid=self.sid) as sp:
+            chunk_state = self.rolling.push(rows)
+            if obs_trace.enabled():
+                sp.set(rows=len(rows))
         self.n_chunks += 1
         if self.rolling.ready:
             self._chunks_since_refit += 1

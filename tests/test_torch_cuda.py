@@ -22,7 +22,9 @@ call. The paper's rival estimators on the card held to their DAGs as on
 the CPU (GOLEM's steps within 1e-4 of the CPU's), SVGD within 1e-5 of
 the CPU's, one speed-up row with one B1 launch per step, RCA past one
 slab within 1e-5 of the CPU's, a NaN post refused, and B3 timed through
-the autotuner's runner (its sums a direct launch's bit for bit).
+the autotuner's runner (its sums a direct launch's bit for bit). The
+port's spans on the profiler's clock: a traced fit's exported starts and
+durations within 1 ms of their mirrored ranges.
 """
 
 import os
@@ -545,3 +547,71 @@ def test_cuda_rca_slabs_and_non_finite_posts(cuda_device):
     with pytest.raises(ValueError, match="non-finite"):
         roll.push(rows)
     assert roll.n_pushed == 0
+
+
+def _clock_gaps(doc, events):
+    """Largest |start| and |duration| differences (ns) between the spans
+    of ``to_chrome_trace`` and their mirrored ``record_function`` ranges
+    (host events of the same name, matched in start order), and how many
+    were matched."""
+    base = doc["baseTimeNanoseconds"]
+    spans, ranges = {}, {}
+    for e in doc["traceEvents"]:
+        spans.setdefault(e["name"], []).append(
+            (base + e["ts"] * 1e3, e["dur"] * 1e3))
+    for e in events:
+        if e.name() in spans and "CUDA" not in str(e.device_type()):
+            ranges.setdefault(e.name(), []).append(
+                (e.start_ns(), e.duration_ns()))
+    start_gap = dur_gap = 0.0
+    n = 0
+    for name, got in spans.items():
+        want = sorted(ranges.get(name, []))
+        assert len(want) == len(got), name
+        for (s0, d0), (s1, d1) in zip(sorted(got), want):
+            start_gap = max(start_gap, abs(s0 - s1))
+            dur_gap = max(dur_gap, abs(d0 - d1))
+            n += 1
+    return start_gap, dur_gap, n
+
+
+@pytest.mark.gpu
+def test_cuda_spans_lie_on_the_profilers_clock(cuda_device):
+    """One staged fit on the card under ``torch.profiler``, spans mirrored,
+    in a window that opens with a range of its own (as a traced run's):
+    every span's exported start (``baseTimeNanoseconds + ts``) lies within
+    1 ms of its range's, durations within 1 ms, and each
+    ``kernels.moments`` span names the launch's pair-block edge."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import obs
+    from repro_torch.obs import trace
+
+    gt = simulate_lingam(m=4000, d=16, seed=3)
+    x = torch.as_tensor(np.ascontiguousarray(gt.data, np.float32),
+                        device=cuda_device)
+    cfg = api.FitConfig(compaction="staged")
+    api.fit_fn(x, cfg)
+    torch.cuda.synchronize()
+    obs.reset()
+    obs.enable()
+    trace.set_annotation_hook(record_function)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                record_function("clock.window"):
+            api.fit_fn(x, cfg)
+            torch.cuda.synchronize()
+        doc = obs.to_chrome_trace()
+        moments = [s for r in obs.roots() for s in r.children[0].children
+                   if s.name == "kernels.moments"]
+    finally:
+        trace.set_annotation_hook(None)
+        obs.disable()
+        obs.reset()
+    start_gap, dur_gap, n = _clock_gaps(doc,
+                                        prof.profiler.kineto_results.events())
+    assert n == len(doc["traceEvents"]) > 16
+    assert start_gap < 1e6 and dur_gap < 1e6, (start_gap, dur_gap)
+    assert len(moments) == 16
+    assert all(s.attrs["tile"] in pairwise_stats.TILES for s in moments)

@@ -478,6 +478,263 @@ def test_call_sites_cost_nothing_when_off():
 
 
 # ---------------------------------------------------------------------------
+# spans inside the port: the refit from moments, the stream's stages, the
+# moment-kernel computation, the ordering step's phases; the profiler's clock
+# ---------------------------------------------------------------------------
+
+
+def _walk(span, parents=()):
+    """(span, names of its ancestors) over a span tree, depth first."""
+    yield span, parents
+    for c in span.children:
+        yield from _walk(c, parents + (span.name,))
+
+
+def _all_spans():
+    return [sp for r in obs.roots() for sp in _walk(r)]
+
+
+def _names_under(ancestor):
+    return [s.name for s, up in _all_spans() if ancestor in up]
+
+
+def _stats(x):
+    mean = x.mean(dim=-2)
+    xc = x - mean[..., None, :]
+    return mean, xc.mT @ xc / x.shape[-2]
+
+
+@pytest.mark.parametrize("batch", [False, True])
+def test_fit_from_stats_records_ordering_and_pruning(batch):
+    x = _x(300, 6, 5)
+    if batch:
+        x = torch.stack([x, _x(300, 6, 6)])
+    mean, cov = _stats(x)
+    cfg = api.FitConfig(compaction="staged")  # the kernel's plain version
+    obs.enable()
+    if batch:
+        batched.fit_many_from_stats(x, mean, cov, cfg)
+    else:
+        api.fit_from_stats(x, mean, cov, cfg)
+    roots = obs.roots()
+    assert [r.name for r in roots] == ["fit.ordering", "fit.pruning"]
+    assert roots[0].attrs == {"d": 6, "compaction": "staged"}
+    assert roots[1].attrs == {"method": "ols"}
+    assert _names_under("fit.ordering").count("kernels.moments") == 6
+
+
+def _engine_traffic(n_sessions=2, posts=4):
+    from repro_torch.serve import engine
+    from repro_torch.stream import session
+
+    rng = np.random.default_rng(1)
+    eng = engine.CausalDiscoveryEngine(batch_size=n_sessions, device="cpu")
+    sids = [eng.open_stream(session.StreamConfig(
+        d=5, chunk=32, window_chunks=3, refit_every=1))
+        for _ in range(n_sessions)]
+    for _ in range(posts):
+        for sid in sids:
+            eng.post_chunk(sid, rng.normal(size=(32, 5)).astype(np.float32))
+    eng.flush_streams()
+    return sids
+
+
+def test_engine_records_the_stream_stages():
+    """Each post is one ``stream.absorb``; each session refitted in a
+    flush is one ``stream.prepare`` and one ``stream.finish`` under
+    ``serve.flush``, and the batched refit's ordering and pruning sit
+    under ``serve.flush_bucket``."""
+    obs.enable()
+    sids = _engine_traffic(n_sessions=2, posts=4)
+    spans = _all_spans()
+    absorbs = [s for s, up in spans if s.name == "stream.absorb"]
+    assert len(absorbs) == 8
+    assert all(not up for s, up in spans if s.name == "stream.absorb")
+    assert {s.attrs["sid"] for s in absorbs} == set(sids)
+    assert {s.attrs["rows"] for s in absorbs} == {32}
+    flushes = [r for r in obs.roots() if r.name == "serve.flush"]
+    refits = sum(r.attrs["n_due"] for r in flushes)
+    assert refits == 4   # the window fills at the third post: 2 slides x 2
+    for name in ("stream.prepare", "stream.finish"):
+        got = [s for s, up in spans if s.name == name]
+        assert len(got) == refits
+        assert all("serve.flush" in up for s, up in spans if s.name == name)
+        assert {s.attrs["sid"] for s in got} == set(sids)
+    for name in ("fit.ordering", "fit.pruning", "stream.finish"):
+        assert all("serve.flush_bucket" in up for s, up in spans
+                   if s.name == name)
+    buckets = [s for s, _ in spans if s.name == "serve.flush_bucket"]
+    assert [[c.name for c in b.children if c.name.startswith("fit.")]
+            for b in buckets] == [["fit.ordering", "fit.pruning"]] * len(
+                buckets)
+
+
+def test_var_fit_records_the_var_estimate():
+    from repro_torch.core.var_lingam import VarLiNGAM
+
+    x = np.random.default_rng(2).normal(size=(200, 4)).astype(np.float32)
+    obs.enable()
+    VarLiNGAM(lags=1, device="cpu").fit(x)
+    assert [r.name for r in obs.roots()] == ["var.estimate", "fit.local"]
+    assert obs.roots()[0].attrs == {"lags": 1}
+
+
+@pytest.mark.parametrize("compaction", ["none", "staged"])
+def test_ordering_step_phases(compaction):
+    """Each of the d steps is ``order.standardize``, ``kernels.moments``,
+    ``order.scores``, ``order.residualize`` in that order under
+    ``fit.ordering``; the staged ordering adds one ``order.compact`` per
+    stage that keeps columns."""
+    from repro_torch.core import ordering
+
+    d = 6
+    cfg = api.FitConfig(compaction=compaction, min_stage=2)
+    obs.enable()
+    api.fit_fn(_x(300, d, 7), cfg)
+    (ordering_span,) = [s for s, _ in _all_spans()
+                        if s.name == "fit.ordering"]
+    names = [c.name for c in ordering_span.children]
+    step = ["order.standardize", "kernels.moments", "order.scores",
+            "order.residualize"]
+    assert [n for n in names if n != "order.compact"] == step * d
+    stages = ordering._stage_schedule(d, cfg.compaction_frac,
+                                      cfg.min_stage)
+    keeping = sum(1 for w, n in stages if w - n) if compaction == "staged" \
+        else 0
+    assert names.count("order.compact") == keeping
+    if keeping:
+        assert keeping == len(stages) - 1 and keeping >= 2
+        # a stage's gather follows its last step
+        assert names[4 * stages[0][1]] == "order.compact"
+
+
+@pytest.mark.parametrize("op", ["pairwise_moments",
+                                "pairwise_moment_sums_rows",
+                                "pairwise_moment_sums_slabs"])
+def test_moment_span_carries_op_and_shape(op):
+    from repro_torch.kernels import pairwise_stats
+
+    x = _x(300, 5, 8)
+    x_std = (x - x.mean(0)) / x.std(0, unbiased=False)
+    c = x_std.T @ x_std / x.shape[0]
+    call = {
+        "pairwise_moments": lambda: pairwise_stats.pairwise_moments(
+            x_std, c),
+        "pairwise_moment_sums_rows": lambda: (
+            pairwise_stats.pairwise_moment_sums_rows(x_std, c, 1, 3)),
+        "pairwise_moment_sums_slabs": lambda: (
+            pairwise_stats.pairwise_moment_sums_slabs(x_std, c, 128)),
+    }[op]
+    want = call()
+    obs.enable()
+    got = call()
+    for a, b in zip(want, got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    (root,) = obs.roots()
+    assert root.name == "kernels.moments"
+    rows = 3 if op == "pairwise_moment_sums_rows" else 5
+    assert root.attrs == {"op": op, "shape": (1, 300, 5), "rows": rows,
+                          "tile": None}
+    assert root.children == []
+
+
+def _fit_path(path):
+    from repro_torch.core.var_lingam import VarLiNGAM
+
+    x = _x(300, 5, 9)
+    if path == "fit":
+        api.fit_fn(x, api.FitConfig(compaction="staged", min_stage=2))
+    elif path == "stats":
+        api.fit_from_stats(x, *_stats(x), _CFG)
+    elif path == "batched_stats":
+        xs = torch.stack([x, x.flip(0)])
+        batched.fit_many_from_stats(xs, *_stats(xs), _CFG)
+    elif path == "var":
+        VarLiNGAM(lags=1, device="cpu").fit(x.numpy())
+    else:
+        _engine_traffic()
+
+
+@pytest.mark.parametrize("path", ["fit", "stats", "batched_stats", "var",
+                                  "stream"])
+def test_inner_spans_cost_nothing_when_off(path):
+    """Telemetry off: the fit, stats, VAR and stream paths record no span
+    and no series; on, the same path records its spans."""
+    _fit_path(path)
+    assert obs.roots() == []
+    assert metrics.snapshot() == {"counters": {}, "gauges": {},
+                                  "histograms": {}}
+    obs.enable()
+    _fit_path(path)
+    assert obs.roots()
+
+
+def test_span_starts_lie_on_the_profilers_clock():
+    """Spans exported by ``to_chrome_trace`` lay over the profiler's
+    ranges: ``baseTimeNanoseconds + ts * 1e3`` is within 1 ms of each
+    mirrored range's start, and the durations agree within 1 ms. The
+    window opens with a range of its own, as a traced run's does (the
+    first range of a process takes its set-up time)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.obs import trace
+
+    obs.enable()
+    trace.set_annotation_hook(record_function)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof, \
+                record_function("clock.window"):
+            with obs.span("clock.outer", k=1):
+                for i in range(3):
+                    with obs.span(f"clock.inner{i}"):
+                        time.sleep(0.002)
+                        with obs.span(f"clock.leaf{i}"):
+                            time.sleep(0.001)
+    finally:
+        trace.set_annotation_hook(None)
+    doc = obs.to_chrome_trace()
+    base = doc["baseTimeNanoseconds"]
+    assert abs(base - time.time_ns()) < 60e9   # the Unix-epoch clock
+    spans = {e["name"]: e for e in doc["traceEvents"]}
+    ranges = {e.name(): e for e in prof.profiler.kineto_results.events()
+              if e.name() in spans}
+    assert set(ranges) == set(spans) and len(spans) == 7
+    for name, e in spans.items():
+        r = ranges[name]
+        assert abs(base + e["ts"] * 1e3 - r.start_ns()) < 1e6, name
+        assert abs(e["dur"] * 1e3 - r.duration_ns()) < 1e6, name
+
+
+def test_device_trace_writes_the_windows_spans(tmp_path):
+    """``profile.device_trace`` writes the profiler's trace and the spans
+    of its window, both with a ``baseTimeNanoseconds`` on one clock."""
+    from repro_torch.obs import profile
+
+    obs.enable()
+    with obs.span("before.window"):
+        pass
+    profile.enable()
+    try:
+        with profile.device_trace(str(tmp_path)):
+            with obs.span("in.window", d=3):
+                time.sleep(0.001)
+    finally:
+        profile.disable()
+    with open(tmp_path / "spans.json") as f:
+        doc = json.load(f)
+    assert [e["name"] for e in doc["traceEvents"]] == ["in.window"]
+    assert doc["traceEvents"][0]["args"] == {"d": "3"}
+    with open(tmp_path / "device_trace.json") as f:
+        prof_doc = json.load(f)
+    (mirror,) = [e for e in prof_doc["traceEvents"]
+                 if e.get("name") == "in.window" and e.get("ph") == "X"]
+    start = doc["baseTimeNanoseconds"] + doc["traceEvents"][0]["ts"] * 1e3
+    prof_start = (prof_doc.get("baseTimeNanoseconds", 0)
+                  + float(mirror["ts"]) * 1e3)
+    assert abs(start - prof_start) < 1e6
+
+
+# ---------------------------------------------------------------------------
 # compile log
 # ---------------------------------------------------------------------------
 
