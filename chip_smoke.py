@@ -35,13 +35,19 @@ failure of which exits non-zero:
      float32 and bfloat16, at the edge cells and at (1e6, 100) against
      float64, and bit-equal to B1/B2 on the same standardized values; then
      its entry point ``ops.fused_moment_rows`` once in each type;
+ 4b. the ordering step's column-pass kernels (``kernels/step_passes.py``)
+     at (1e6, 100), (3999, 487) and (32, 3999, 487): each wrapper timed
+     against its byte bound and the composed plain version, the results
+     within ``STEP_TOL`` of the plain version, a repeat call bit for bit,
+     a narrower buffer's columns and a batch element bit-equal to the
+     wider buffer's and the single launch's, the launch counts;
   5. mid-size fits (m = 20,000, d = 32): the kernel against the plain
      ``blocked`` backend, both on the card: on a layered DAG, step by step
      up to ties between equally valid roots; on a chain DAG, whose order
      is unique, exactly;
   6. the full-size fit, workload ``lingam-1m-100``, with compaction
      "none" and "staged": equal orders, consistent with the true DAG, the
-     kernel launched once per ordering step;
+     kernel and each step-pass wrapper launched once per ordering step;
   7. the VarLiNGAM facade at ``varlingam-stocks-487`` (m = 4000,
      d = 487): B1 once per step, walked step by step against ``blocked``;
   8. the rolling stream ``varlingam-stream-487`` through a
@@ -120,16 +126,18 @@ failure of which exits non-zero:
      the spans mirrored onto it, under ``--out-dir`` (default
      ``smoke_out/``);
  14. the mesh plan: the 1 x 1 mesh at lingam-1m-100 ("staged") in this
-     process, bit-equal to the local plan, one B2 launch per ordering
+     process, its order the local plan's or parting from it only where
+     two roots tie within the kernel's fp32 tolerance, its adjacency within
+     1e-5 where the orders agree (the card's local plan runs the step-pass
+     kernels, the mesh plan the composed passes), one B2 launch per ordering
      step, timed against the local plan in one scope and once with its
      world of one set up inside the call; the engine's mesh regime and
      VarLiNGAM through a partition against ``fit_fn``; then four
      processes sharing the card over gloo (``torchrun`` of
      ``repro_torch.launch.mesh_cells``): if this build's gloo takes CUDA
-     tensors, 2 x 2 and 4 x 1 meshes at (256, 24), whose orders must be
-     the card's local plan's, and a 2 x 2 mesh at (20,000, 100), whose
-     order may part from it only where the two roots tie within the
-     kernel's fp32 tolerance; one B2 launch per step on each rank, the
+     tensors, 2 x 2 and 4 x 1 meshes at (256, 24) and a 2 x 2 mesh at
+     (20,000, 100), whose orders may part from the card's local plan's
+     only where the two roots tie within the kernel's fp32 tolerance; one B2 launch per step on each rank, the
      adjacency within 1e-5 where the orders agree (else the gloo error
      is printed);
  15. the engine's benches (``benchmarks/torch_{tune,stream,bootstrap,
@@ -231,7 +239,13 @@ def ptxas_report(log: str):
              ("fused_partials_kernelIfE", "fused_partials<float>"),
              ("fused_partials_kernelI13__nv_bfloat16E",
               "fused_partials<bfloat16>"),
-             ("reduce_splits_kernel", "reduce_splits"))
+             ("reduce_splits_kernel", "reduce_splits"),
+             ("col_stats_kernel", "col_stats"),
+             ("stats_merge_kernel", "stats_merge"),
+             ("standardize_moments_kernel", "standardize_moments"),
+             ("gram_kernel", "gram"),
+             ("finish_kernel", "finish"),
+             ("residualize_kernel", "residualize"))
     report, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -302,6 +316,113 @@ def moment_bound_ms(op, shape, peaks, **kw):
     return b["bound_s"] * 1e3, b["compute_s"] * 1e3, b["memory_s"] * 1e3
 
 
+# The ordering step's column passes against their composed plain version
+# (tests/test_torch_cuda.py): means and variances within 3e-7 / 5e-7
+# relative, x_std within 2e-5, C within 2e-6, the residual update within
+# 2e-5 of the buffer's largest magnitude.
+STEP_TOL = {"mu": 3e-7, "var": 5e-7, "x_std": 2e-5, "c": 2e-6,
+            "resid": 2e-5}
+STEP_SHAPES = ((1_000_000, 100), (3999, 487), (32, 3999, 487))
+
+
+def step_passes_phase(dev, cuda_ms):
+    """Phase 4b: the ordering step's column-pass kernels
+    (``kernels/step_passes.py``) at the cells' shapes: each wrapper's ms
+    per call against its byte bound (standardize: x read twice, x_std
+    written once and read once; residualize: x read, the new buffer
+    written; at 3.35 TB/s) and the Gram product's float64 tensor-core
+    bound, the composed plain version's ms, the results against the plain
+    version within ``STEP_TOL``, a repeat call bit for bit, a narrower
+    buffer's columns and a batch element bit-equal to the full buffer's
+    and the single launch's, and the wrapper's launch counts. Returns the
+    kernel-table fields by shape."""
+    import torch
+    from repro_torch.core import measures, ordering
+    from repro_torch.kernels import step_passes
+
+    plain = ordering.LocalReducer()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = {}
+    for shape in STEP_SHAPES:
+        lead, (m, w) = shape[:-2], shape[-2:]
+        x = (torch.empty(shape, device=dev).exponential_(generator=gen)
+             * 2.0 + 5.0)
+        active = torch.ones((*lead, w), dtype=torch.bool, device=dev)
+        root = torch.full(lead, w // 3, dtype=torch.int64, device=dev)
+        step_passes.launches = step_passes.residualize_launches = 0
+        out = step_passes.standardize(x)
+        again = step_passes.standardize(x)
+        xn, an = step_passes.residualize(x, active, root, out[5], out[3])
+        torch.cuda.synchronize()
+        counts = (step_passes.launches, step_passes.residualize_launches)
+        repeat = all(torch.equal(a, b) for a, b in zip(
+            (*out[:4], *out[4], out[5]), (*again[:4], *again[4], again[5])))
+        want = ordering.step_standardize(x, plain)
+        cm = measures.nonlinear_moments(out[0], axis=-2)
+        xw, aw = ordering.residualize(x, active, root, want[2], want[3],
+                                      plain)
+        errs = {
+            "mu": float(((out[2] - want[2]).abs() / want[2].abs()).max()),
+            "var": float(((out[3] - want[3]).abs() / want[3]).max()),
+            "x_std": float((out[0] - want[0]).abs().max()),
+            "c": float((out[1] - want[1]).abs().max()),
+            "resid": float((xn - xw).abs().max() / x.abs().max()),
+        }
+        cm_err = max(float((a - b).abs().max()) for a, b in zip(out[4], cm))
+        if lead:  # element 0 against its own launch
+            single = step_passes.standardize(x[0].contiguous())
+            layout = all(torch.equal(a[0], b) for a, b in zip(
+                (*out[:4], *out[4], out[5]),
+                (*single[:4], *single[4], single[5])))
+        else:  # every other column, as after a compaction
+            keep = torch.arange(0, w, 2, device=dev)
+            narrow = step_passes.standardize(x[:, keep].contiguous())
+            layout = (all(torch.equal(a[..., keep], b) for a, b in zip(
+                (out[0], out[2], out[3], *out[4]),
+                (narrow[0], narrow[2], narrow[3], *narrow[4])))
+                and torch.equal(out[1][keep][:, keep], narrow[1]))
+        std_ms = cuda_ms(lambda: step_passes.standardize(x), 10)
+        res_ms = cuda_ms(lambda: step_passes.residualize(
+            x, active, root, out[5], out[3]), 10)
+
+        def composed():
+            xs, _, mu, var = ordering.step_standardize(x, plain)
+            plain.col_moments(xs)
+            ordering.residualize(x, active, root, mu, var, plain)
+
+        plain_ms = cuda_ms(composed, 3)
+        nbytes = x.numel() * 4
+        b = shape[0] if lead else 1
+        gram_fma = b * m * w * (w + 1) / 2
+        row = {
+            "standardize_ms": std_ms, "residualize_ms": res_ms,
+            "standardize_bytes_ms": 4 * nbytes / 3.35e12 * 1e3,
+            "residualize_bytes_ms": 2 * nbytes / 3.35e12 * 1e3,
+            "gram_fp64_tensor_ms": gram_fma * 2 / 67e12 * 1e3,
+            "plain_ms": plain_ms, "errors": errs, "col_moments_err": cm_err,
+            "repeat_bit_equal": repeat, "layout_bit_equal": layout,
+            "launches": counts,
+        }
+        rows["x".join(map(str, shape))] = row
+        print(f"phase 4b: step passes at {shape}: standardize {std_ms:.4f} ms"
+              f" (bytes {row['standardize_bytes_ms']:.4f} ms, Gram on the "
+              f"FP64 tensor cores {row['gram_fp64_tensor_ms']:.4f} ms), "
+              f"residualize {res_ms:.4f} ms (bytes "
+              f"{row['residualize_bytes_ms']:.4f} ms); composed step "
+              f"{plain_ms:.4f} ms; against it {errs}, column moments "
+              f"{cm_err:.2e}; repeat bit-equal {repeat}, "
+              f"{'batch element' if lead else 'narrow buffer'} bit-equal "
+              f"{layout}; launches {counts}", flush=True)
+        bad = [k for k, v in errs.items() if not v <= STEP_TOL[k]]
+        if bad or not cm_err <= ATOL_ROWS or not (repeat and layout):
+            fail(f"step passes at {shape}: {bad or 'moments/bits'}")
+        if counts != (2, 1):
+            fail(f"step-pass launch counts {counts}, expected (2, 1)")
+        del x, out, again, xn, xw, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def walk_against_plain(x, kernel, plain, atol, x_plain=None):
     """Replay the kernel fit's masked scan on ``x``. At every step the
     plain backend's moments must agree with the kernel's within ``atol``
@@ -328,8 +449,9 @@ def walk_against_plain(x, kernel, plain, atol, x_plain=None):
     xp = x_plain
     order, worst, tied, ratio = [], 0.0, 0, 0.0
     for step in range(d):
-        x_std, c, _, _ = ordering.step_standardize(x, kernel)
-        cm = kernel.col_moments(x_std)
+        st = kernel.standardize(x)  # the step-pass kernels on the card
+        x_std, c = st.x_std, st.c
+        cm = st.col_moments or kernel.col_moments(x_std)
         k1, k2 = kernel.moment_rows(x_std, c)
         if xp is None:
             cmp = cm
@@ -984,13 +1106,16 @@ MESH_RANK_CELLS = [
 
 def mesh_phase(dev, gt, out_dir):
     """Phase 14: the mesh plan on the card. The 1 x 1 mesh at
-    lingam-1m-100 ("staged") bit-equal to the local plan and timed against
-    it; the engine's mesh regime and VarLiNGAM through a partition; a
+    lingam-1m-100 ("staged") against the local plan (equal orders, the
+    adjacency within ``ATOL_ADJ``: on the card the local plan's step
+    passes are kernels, the mesh plan's composed, so the two agree to
+    float32 rounding, not bit for bit) and timed against it; the engine's
+    mesh regime and VarLiNGAM through a partition; a
     2 x 2 (and 4 x 1) mesh as four processes sharing the card over gloo,
     if this build's gloo takes CUDA tensors. Returns the numbers."""
     import torch
     import torch.distributed as dist
-    from repro_torch.core import VarLiNGAM, api
+    from repro_torch.core import VarLiNGAM, api, ordering
     from repro_torch.data.simulate import simulate_lingam, simulate_var_stocks
     from repro_torch.kernels import pairwise_stats
     from repro_torch.launch import mesh as launch_mesh
@@ -1019,19 +1144,33 @@ def mesh_phase(dev, gt, out_dir):
     if dist.is_initialized():
         fail("the 1 x 1 mesh left its process group behind")
     times = {"local": [], "mesh": []}
+    def agrees(fit):
+        """Equal orders with the adjacency and residual variances close,
+        or orders that part only where two roots tie (lingam-1m-100's
+        layered DAG has many equally valid roots)."""
+        a, b = fit.to_numpy(), local.to_numpy()
+        if not np.array_equal(a[0], b[0]):
+            parting_tie(x, b[0], a[0], ordering.LocalReducer(), ATOL_F32)
+            return True
+        return bool(np.abs(a[1] - b[1]).max() <= ATOL_ADJ
+                    and np.allclose(a[2], b[2], rtol=1e-5, atol=0))
+
     with launch_mesh.mesh_scope(part.mesh, dev.type):
         for which in ("local", "mesh", "mesh", "local"):
             fit, dt = run(mesh_cfg if which == "mesh" else local_cfg)
             times[which].append(dt)
-            for a, b in zip(fit.to_numpy(), local.to_numpy()):
-                if not np.array_equal(a, b):
-                    fail(f"the 1 x 1 mesh fit ({which}) is not bit-equal to "
-                         f"the local plan")
-    same = all(np.array_equal(a, b)
-               for a, b in zip(mesh.to_numpy(), local.to_numpy()))
-    res.update(once_s=once_s, times=times, bit_equal=same)
-    print(f"phase 14: 1 x 1 mesh at lingam-1m-100 (staged): leaves bit-equal "
-          f"to the local plan {same}; B2 launches {res['mesh_b2']} (one per "
+            if not agrees(fit):
+                fail(f"the 1 x 1 mesh fit ({which}) does not agree with "
+                     f"the local plan")
+    same = agrees(mesh)
+    res.update(once_s=once_s, times=times, agrees=same)
+    same_order = bool(np.array_equal(mesh.order.cpu().numpy(),
+                                     local.order.cpu().numpy()))
+    res["same_order"] = same_order
+    print(f"phase 14: 1 x 1 mesh at lingam-1m-100 (staged): order equal "
+          f"{same_order} (else parting at a tie), adjacency within "
+          f"{ATOL_ADJ} and residual variances within 1e-5 of the local plan "
+          f"where equal {same}; B2 launches {res['mesh_b2']} (one per "
           f"ordering step), B1 launches {res['mesh_b1']}; one call with its "
           f"world of one {once_s:.3f} s; in one scope local "
           + ", ".join(f"{t:.3f}" for t in times["local"]) + " s, mesh "
@@ -1111,14 +1250,13 @@ def mesh_phase(dev, gt, out_dir):
         same_order = np.array_equal(leaves[0], want[0])
         adj_err = (float(np.abs(leaves[1] - want[1]).max()) if same_order
                    else None)
-        # At m = 256 the order is the local plan's on every mesh (the
-        # CPU tests pin it); where a longer fit's order parts (shards that
-        # group the 128-sample sub-sums otherwise), the two roots must
-        # tie at the first parting within the kernel's fp32 tolerance.
+        # Where the order parts from the card's local plan (whose step
+        # passes are kernels, the mesh plan's composed; at larger m also
+        # shards that group the 128-sample sub-sums otherwise), the two
+        # roots must tie at the first parting within the kernel's fp32
+        # tolerance.
         part_at = tie = None
         if not same_order:
-            if m == 256:
-                fail(f"{key}: the mesh order is not the local plan's")
             part_at, tie = parting_tie(xl, want[0], leaves[0],
                                        ordering.LocalReducer(), ATOL_F32)
         ranks_b2 = [rep[key]["b2"] for rep in reports]
@@ -1345,7 +1483,8 @@ def main() -> int:
                                            simulate_var_stocks)
     from repro_torch.infer import effects, intervene, rca
     from repro_torch.infer import query as query_lib
-    from repro_torch.kernels import build, fused_stats, ops, pairwise_stats
+    from repro_torch.kernels import (build, fused_stats, ops, pairwise_stats,
+                                     step_passes)
     from repro_torch.kernels.tune import autotune
     from repro_torch.kernels.tune import cache as tune_cache
     from repro_torch.kernels.tune import registry as tune_registry
@@ -1389,7 +1528,7 @@ def main() -> int:
     print(f"peaks: {peaks}; B1's bound at (1e6, 100) {b1_bound[0]:.3f} ms "
           f"(special-function ops {b1_bound[1]:.3f} ms, bytes "
           f"{b1_bound[2]:.3f} ms)")
-    sources = ("pairwise_moments", "fused_moments")
+    sources = ("pairwise_moments", "fused_moments", "step_passes")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
         list(pool.map(build.load, sources))
@@ -1404,7 +1543,7 @@ def main() -> int:
         print(f"  ptxas: {entry}: {rep}")
     # A cached library keeps its nvcc log beside it, so the report is
     # whole on every run.
-    if len(ptxas) != 7 or any(len(r) != 3 for r in ptxas.values()):
+    if len(ptxas) != 13 or any(len(r) != 3 for r in ptxas.values()):
         fail(f"ptxas report incomplete: {ptxas}")
 
     # 2. kernel against its plain version on the card
@@ -1722,6 +1861,9 @@ def main() -> int:
     del x_bf16, e32, e16, f1, f2, fused["float32"]["s"], fused["bfloat16"]["s"]
     del x_std, c, a1, a2, b1, b2
 
+    # 4b. the ordering step's column passes
+    step_rows = step_passes_phase(dev, cuda_ms)
+
     # 5. mid-size fit: kernel against the plain blocked backend. The
     # layered DAG has many independent, equally valid roots whose scores
     # are 0 up to fp32 rounding; where the two backends break such a tie
@@ -1765,12 +1907,19 @@ def main() -> int:
         fail("kernel and blocked fits disagree on the chain DAG")
 
     # 6. full-size fit: the main path
-    fits = {}
+    fits, step_calls = {}, {}
     for compaction in ("none", "staged"):
         pairwise_stats.launches = 0
+        step_passes.launches = step_passes.residualize_launches = 0
         fit_s, model = timed(
             lambda: DirectLiNGAM(compaction=compaction).fit(gt.data))
         n_launch = pairwise_stats.launches
+        step_launches = (step_passes.launches,
+                         step_passes.residualize_launches)
+        step_calls[compaction] = step_launches
+        if step_launches != (wl.d, wl.d):
+            fail(f"expected {wl.d} step-pass calls of each wrapper, got "
+                 f"{step_launches}")
         consistent = order_consistent(model.causal_order_, gt.adjacency)
         finite = bool(np.isfinite(model.adjacency_).all()
                       and np.isfinite(model.resid_var_).all())
@@ -2896,6 +3045,17 @@ def main() -> int:
             b3_tuned["b3_check"]["max_abs_err_vs_plain_per_sample"],
         "ptxas": regs("fused_partials<float>", "fused_partials<bfloat16>",
                       "reduce_splits"),
+    }, {
+        "name": "step_passes",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/step_passes.cu",
+        "replaces": None,
+        "launches": step_calls["none"][0],
+        "residualize_launches": step_calls["none"][1],
+        "shapes": step_rows,
+        "library_ms": None,
+        "ptxas": regs("col_stats", "stats_merge", "standardize_moments",
+                      "gram", "finish", "residualize"),
     }]}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s (test shapes worst err: B1 "

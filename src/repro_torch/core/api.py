@@ -315,9 +315,13 @@ def fit_fn(x, config: FitConfig = FitConfig()) -> FitResult:
 
     With ``config.partition`` set the fit runs the mesh plan
     (:func:`repro_torch.core.sharded.fit_sharded`) and returns the same
-    :class:`FitResult`: bit for bit the local plan's where the shards
-    line up with the kernel's sub-sums, within fp32 reduction order
-    elsewhere. TF32 is off by default in PyTorch
+    :class:`FitResult`: on the CPU bit for bit the local plan's where the
+    shards line up with the kernel's sub-sums, within fp32 reduction order
+    elsewhere; on the card within float32 rounding of the local plan's
+    (whose ordering steps run the step-pass kernels of
+    :mod:`repro_torch.kernels.step_passes`, the mesh plan's the composed
+    passes, which reduce across shards), so equally valid roots may be
+    broken differently. TF32 is off by default in PyTorch
     (``torch.backends.cuda.matmul``); the fit raises if it has been
     turned on.
     """

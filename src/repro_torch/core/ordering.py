@@ -29,10 +29,22 @@ whole batch. So element k takes the same steps as a fit of x[k] alone,
 with the same moments (the kernel's sums are bit for bit those of a
 launch on x[k]) and the same float64 reductions rounded to float32.
 
+On the card, :class:`LocalReducer` runs the step's column passes as the
+hand-written CUDA kernels of :mod:`repro_torch.kernels.step_passes`: one
+launch sequence for the column statistics, the standardization with the
+column moments and the correlation, one for the residual update (six
+launches in all, where the composed step made ~70). Their plain versions
+are the composed functions here, :func:`step_standardize` (through the
+reducer's ``mean_over_samples`` and ``gram_mean``),
+:func:`repro_torch.core.measures.nonlinear_moments` (``col_moments``) and
+:func:`residualize`, which the local plan takes for a CPU tensor and the
+mesh plan everywhere: its reductions cross the shards between the passes.
+
 With telemetry on, each step's phases are spans (``order.standardize``,
-``order.scores``, ``order.residualize``; the moment call between them
-is ``kernels.dispatch`` and ``kernels.moments``) and each stage's gather
-in the staged ordering is ``order.compact``.
+with ``path="kernel"`` or ``path="composed"``, the kernels' column moments
+and correlation inside it; ``order.scores``; ``order.residualize``; the
+moment call between them is ``kernels.dispatch`` and ``kernels.moments``)
+and each stage's gather in the staged ordering is ``order.compact``.
 
 :func:`compact_order_impl` shrinks the buffer to the surviving columns
 in stages and returns the same order as :func:`masked_order_impl`. That
@@ -42,20 +54,39 @@ differ only at the level of fp32 rounding, so a reduction whose order
 depends on the width (torch's column sums, cuBLAS's product) would break
 ties differently in the two layouts. The reducer therefore sums over
 samples and pairs in float64 and rounds the result to float32, and the
-moment kernel's sums do not depend on the width.
+moment kernel's sums do not depend on the width; the step-pass kernels sum
+in an order fixed by the sample count alone, so their statistics, moments
+and correlations are the same bits at every width and batch too.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, step_passes
 from repro_torch.obs import trace as obs_trace
 
 from . import measures
 
 _NEG_INF = -1e30
 EPS = 1e-12
+
+
+class StepStats(NamedTuple):
+    """A step's standardization: ``x_std``, the float32 correlation ``c``,
+    the float32 column means ``mu`` and variances ``var``; from the
+    step-pass kernels also the column moments ``col_moments`` (cm1, cm2)
+    and the float64 ``gram`` E[x_std_i x_std_j] that ``c`` rounds, which
+    the kernels' residual update reads (None on the composed path)."""
+
+    x_std: torch.Tensor
+    c: torch.Tensor
+    mu: torch.Tensor
+    var: torch.Tensor
+    col_moments: Optional[tuple] = None
+    gram: Optional[torch.Tensor] = None
 
 
 class LocalReducer:
@@ -71,8 +102,15 @@ class LocalReducer:
         the kernel's launch plan comes from the dispatcher in mode
         ``tune``
       * ``col_moments(x_std) -> (cm1, cm2)`` per-column nonlinear moments
-        for the H(x_i) entropies
-      * ``standardize(x) -> (x_std, c, mu, var)``
+        for the H(x_i) entropies, composed (the step takes them from
+        ``standardize`` where the kernels computed them)
+      * ``standardize(x) -> StepStats``: on a CUDA tensor the step-pass
+        kernels (:func:`repro_torch.kernels.step_passes.standardize`, which
+        bring the column moments and the float64 Gram means along, and
+        whose ``gram`` routes the step's residual update to
+        :func:`repro_torch.kernels.step_passes.residualize`); on a CPU
+        tensor their plain version, :func:`step_standardize` over the two
+        methods above
       * ``mask_rows(v)`` -- zero the rows that are sample padding
         (identity here; a mesh shard carries a zero-padded tail)
       * ``gather_rows(rows)`` -- the full moment matrices from the plan's
@@ -98,7 +136,11 @@ class LocalReducer:
         return ((v.mT @ v) / v.shape[-2]).float()
 
     def standardize(self, x):
-        return step_standardize(x, self)
+        if x.is_cuda:
+            return StepStats(*step_passes.standardize(x))
+        if x.device.type != "cpu":
+            raise ValueError(f"no step-pass kernels for {x.device}")
+        return StepStats(*step_standardize(x, self))
 
     def mask_rows(self, v):
         return v
@@ -161,10 +203,10 @@ def ordering_scores(x, active, *, backend=None):
       standardized data and correlation (reused by the residual update).
     """
     reducer = LocalReducer(backend=backend)
-    x_std, c, _, _ = reducer.standardize(x)
-    m1, m2 = reducer.moment_rows(x_std, c)
-    cm1, cm2 = reducer.col_moments(x_std)
-    return step_scores(cm1, cm2, m1, m2, active), x_std, c
+    st = reducer.standardize(x)
+    m1, m2 = reducer.moment_rows(st.x_std, st.c)
+    cm1, cm2 = st.col_moments or reducer.col_moments(st.x_std)
+    return step_scores(cm1, cm2, m1, m2, active), st.x_std, st.c
 
 
 def ordering_step(x, active, reducer):
@@ -180,16 +222,22 @@ def ordering_step(x, active, reducer):
       (x_new, active_new, root): residualized data, updated mask, and
       the column chosen this step as a 0-d device tensor, or (b,).
     """
-    with obs_trace.span("order.standardize"):
-        x_std, c, mu, var = reducer.standardize(x)
-    rows1, rows2 = reducer.moment_rows(x_std, c)
+    with obs_trace.span("order.standardize") as sp:
+        st = reducer.standardize(x)
+        sp.set(path="composed" if st.gram is None else "kernel")
+    rows1, rows2 = reducer.moment_rows(st.x_std, st.c)
     m1, m2 = reducer.gather_rows(rows1), reducer.gather_rows(rows2)
     with obs_trace.span("order.scores"):
-        cm1, cm2 = reducer.col_moments(x_std)
+        cm1, cm2 = st.col_moments or reducer.col_moments(st.x_std)
         k_list = step_scores(cm1, cm2, m1, m2, active)
         root = torch.argmax(k_list, dim=-1)  # first maximum, as jnp.argmax
     with obs_trace.span("order.residualize"):
-        x_new, active_new = residualize(x, active, root, mu, var, reducer)
+        if st.gram is None:
+            x_new, active_new = residualize(x, active, root, st.mu, st.var,
+                                            reducer)
+        else:
+            x_new, active_new = step_passes.residualize(
+                x, active, root, st.gram, st.var)
     return x_new, active_new, root
 
 

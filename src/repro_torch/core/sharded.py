@@ -162,7 +162,7 @@ class MeshReducer:
 
     def standardize(self, x):
         if not self.fused_standardize:
-            return ordering.step_standardize(x, self)
+            return ordering.StepStats(*ordering.step_standardize(x, self))
         # The correlation from the raw-X Gram product and an affine fold,
         # C = D (G/m - mu mu^T) D with G = X^T X, D = diag(rstd): one
         # standardized-slab product saved a step (padded rows are zero,
@@ -175,7 +175,7 @@ class MeshReducer:
         x_std = xc * rstd[None, :]
         g = self.gram_mean(x)
         c = (g - mu[:, None] * mu[None, :]) * (rstd[:, None] * rstd[None, :])
-        return x_std, c.contiguous(), mu, var
+        return ordering.StepStats(x_std, c.contiguous(), mu, var)
 
     def moment_rows(self, x_std, c):
         """This rank's i-row tile of the pairwise residual moment means:

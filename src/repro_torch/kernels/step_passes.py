@@ -1,0 +1,186 @@
+"""CUDA kernels for the ordering step's column passes.
+
+One DirectLiNGAM ordering step (:func:`repro_torch.core.ordering.ordering_step`)
+standardizes the working buffer, forms its correlation and column moments,
+and regresses the other columns on the chosen root. Composed from PyTorch
+ops that is ~70 launches and ~90 passes over the buffer's bytes a step
+(a float64 copy of it for the Gram product among them). The kernels of
+``csrc/step_passes.cu`` do the same work in six launches:
+
+  * :func:`standardize` -- each column's float64 mean and centred sum of
+    squares (a two-pass mean and variance within each 32-sample slab, the
+    slabs and then the splits merged in a fixed order by Chan's formula),
+    float32 ``x_std = (x - mu) * rsqrt(var)`` together with the column
+    moments E log cosh x_std and E x_std exp(-x_std^2 / 2) (float64 sums
+    of B1's integrand), and C = x_std^T x_std / m, its sums in float64 on
+    the FP64 tensor cores, rounded to float32;
+  * :func:`residualize` -- ``x_j - coef_j x_root`` on the active non-root
+    columns, the root's covariances taken from the step's float64 Gram
+    sums.
+
+The kernels replace no Pallas kernel: the JAX step is plain ``jnp``. They
+are bound by bytes, about six passes over the buffer a step (four reads,
+two writes), but for the Gram product, bound by the FP64 tensor cores; the
+source's header says what the design does about each.
+Every sum runs over the samples in an order fixed by m alone (the splits
+of :func:`split_plan`), never by the width, the column's position, the
+batch or the tile, so a column's statistics, moments and C entries are the
+same bits in every layout: the staged ordering keeps the masked scan's
+order, and a batch element the single fit's.
+
+Both functions take a leading batch axis, x (b, m, w), and raise on a
+tensor off the card: the plain versions are the composed functions of
+:mod:`repro_torch.core.ordering` (``step_standardize``, ``residualize``)
+and :func:`repro_torch.core.measures.nonlinear_moments`, which
+``LocalReducer`` takes for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import build
+
+SLAB = 32  # samples a slab: the unit of the two-pass statistics
+# (most splits, fewest slabs a split) of the column passes and of the Gram
+# sums; at m = 1e6, 505 and 128 splits; at m = 3999, 16 and 4.
+COL_SPLITS = (512, 8)
+GRAM_SPLITS = (128, 32)
+RESID_ROWS = 64  # samples a block of the residual update
+MAX_BATCH = 65535  # the grid's y extent
+
+# Calls that ran on the card: one per standardize (five kernel launches),
+# one per residualize (one launch).
+launches = 0
+residualize_launches = 0
+
+
+def split_plan(m: int, max_splits: int, min_slabs: int):
+    """(n_split, slabs_per_split) over ceil(m / SLAB) slabs: at most
+    ``max_splits`` splits of at least ``min_slabs`` slabs (fewer when m is
+    small), the last one ragged. A function of m alone."""
+    slabs = max(1, math.ceil(m / SLAB))
+    n = max(1, min(max_splits, math.ceil(slabs / min_slabs)))
+    per = math.ceil(slabs / n)
+    return math.ceil(slabs / per), per
+
+
+@functools.cache
+def _lib():
+    lib = build.load("step_passes")
+    lib.step_standardize.restype = ctypes.c_int
+    lib.step_standardize.argtypes = [ctypes.c_void_p] * 14 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.step_residualize.restype = ctypes.c_int
+    lib.step_residualize.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    return lib
+
+
+def _check(x):
+    if not x.is_cuda:
+        raise ValueError(f"the step-pass kernels run on the card, not on "
+                         f"{x.device}")
+    if x.dim() not in (2, 3) or x.shape[-2] < 1 or x.shape[-1] < 1:
+        raise ValueError(f"x must be (m, w) or (b, m, w), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise TypeError(f"the step-pass kernels take contiguous float32, got "
+                        f"{x.dtype}, contiguous={x.is_contiguous()}")
+    b = x.shape[0] if x.dim() == 3 else 1
+    if not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"batch of {b} outside [1, {MAX_BATCH}]")
+    return b
+
+
+def standardize(x):
+    """One step's standardization on the card.
+
+    Args:
+      x: (m, w) working data, sample-major float32, or a batch (b, m, w).
+    Returns:
+      (x_std, c, mu, var, (cm1, cm2), gram): float32 x_std like x; the
+      float32 correlation c (..., w, w); float32 means and variances
+      (clamped at 1e-12) (..., w); the float32 column moments (..., w);
+      the float64 E[x_std_i x_std_j] (..., w, w) that c rounds.
+    """
+    global launches
+    b = _check(x)
+    lead = x.shape[:-2]
+    m, w = x.shape[-2:]
+    col_splits, col_per = split_plan(m, *COL_SPLITS)
+    gram_splits, gram_per = split_plan(m, *GRAM_SPLITS)
+    dev = x.device
+    x_std = torch.empty_like(x)
+    mu, var, rstd, cm1, cm2 = torch.empty((5, *lead, w), device=dev)
+    gram = torch.empty((*lead, w, w), dtype=torch.float64, device=dev)
+    c = torch.empty((*lead, w, w), device=dev)
+    parts = torch.empty((4, b, col_splits, w), dtype=torch.float64,
+                        device=dev)
+    gram_part = torch.empty((b, gram_splits, w, w), dtype=torch.float64,
+                            device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().step_standardize(
+            x.data_ptr(), x_std.data_ptr(), mu.data_ptr(), var.data_ptr(),
+            rstd.data_ptr(), cm1.data_ptr(), cm2.data_ptr(), gram.data_ptr(),
+            c.data_ptr(), *(p.data_ptr() for p in parts),
+            gram_part.data_ptr(), m, w, col_splits, col_per, gram_splits,
+            gram_per, b, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"step_standardize: CUDA error {err}")
+    launches += 1
+    return x_std, c, mu, var, (cm1, cm2), gram
+
+
+def residualize(x, active, root, gram, var):
+    """The residual update on the card: every active column but ``root``
+    regressed on ``root``'s column of ``x``, coefficient
+    ``gram[root, j] * sqrt(var[j] / var[root])``.
+
+    Args:
+      x:      (m, w) float32 working data, or (b, m, w).
+      active: (w,) or (b, w) bool.
+      root:   0-d or (b,) int64 device tensor.
+      gram, var: the step's :func:`standardize` results for ``x``.
+    Returns:
+      (x_new, active_new): a new buffer, and the mask without ``root``.
+    """
+    global residualize_launches
+    b = _check(x)
+    lead = x.shape[:-2]
+    m, w = x.shape[-2:]
+    if (active.dtype != torch.bool or tuple(active.shape) != (*lead, w)
+            or active.device != x.device):
+        raise ValueError(f"active must be bool {(*lead, w)}, got "
+                         f"{active.dtype} {tuple(active.shape)}")
+    if (root.dtype != torch.int64 or tuple(root.shape) != tuple(lead)
+            or root.device != x.device):
+        raise ValueError(f"root must be int64 {tuple(lead)}, got "
+                         f"{root.dtype} {tuple(root.shape)}")
+    if (gram.dtype != torch.float64 or tuple(gram.shape) != (*lead, w, w)
+            or var.dtype != torch.float32 or tuple(var.shape) != (*lead, w)
+            or not (gram.is_contiguous() and var.is_contiguous())
+            or gram.device != x.device or var.device != x.device):
+        raise ValueError("gram and var must be standardize's results for x")
+    active = active.contiguous()
+    root = root.contiguous()
+    x_new = torch.empty_like(x)
+    active_new = torch.empty_like(active)
+    with torch.cuda.device(x.device):
+        err = _lib().step_residualize(
+            x.data_ptr(), root.data_ptr(), active.data_ptr(),
+            gram.data_ptr(), var.data_ptr(), x_new.data_ptr(),
+            active_new.data_ptr(), m, w, RESID_ROWS, b,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"step_residualize: CUDA error {err}")
+    residualize_launches += 1
+    return x_new, active_new

@@ -24,7 +24,10 @@ the CPU's, one speed-up row with one B1 launch per step, RCA past one
 slab within 1e-5 of the CPU's, a NaN post refused, and B3 timed through
 the autotuner's runner (its sums a direct launch's bit for bit). The
 port's spans on the profiler's clock: a traced fit's exported starts and
-durations within 1 ms of their mirrored ranges.
+durations within 1 ms of their mirrored ranges. The ordering step's
+column-pass kernels against the composed passes (tolerances on each
+test), bit-identical across buffer widths and batch sizes, and the staged
+order equal to the masked one through them.
 """
 
 import os
@@ -615,3 +618,181 @@ def test_cuda_spans_lie_on_the_profilers_clock(cuda_device):
     assert start_gap < 1e6 and dur_gap < 1e6, (start_gap, dur_gap)
     assert len(moments) == 16
     assert all(s.attrs["tile"] in pairwise_stats.TILES for s in moments)
+
+
+# ---------------------------------------------------------------------------
+# the ordering step's column passes (kernels/step_passes.py)
+# ---------------------------------------------------------------------------
+
+# (b, m, w): unbatched and batched buffers, widths off the 64-column Gram
+# tile and the 128-column block, sample counts off the 32-sample slab.
+STEP_SHAPES = [(None, 1000, 7), (None, 4097, 130), (None, 3999, 487),
+               (3, 2048, 65), (2, 333, 64)]
+
+
+def _step_data(b, m, w, seed=0, device="cuda"):
+    rng = np.random.default_rng(seed)
+    shape = (m, w) if b is None else (b, m, w)
+    # Skewed non-Gaussian columns with means well away from 0.
+    x = rng.exponential(size=shape) * rng.uniform(0.5, 3.0, size=shape[-1])
+    x = x + rng.uniform(-20.0, 20.0, size=shape[-1])
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,m,w", STEP_SHAPES)
+def test_cuda_step_standardize_matches_composed(cuda_device, b, m, w):
+    """The kernels' standardization, correlation and column moments against
+    the composed passes on the card: means and variances within 3e-7 and
+    5e-7 relative (both float64 sums rounded to float32, a last-bit
+    difference), x_std within 2e-5 absolute (a last bit of the mean times
+    rstd), C within 2e-6, the column moments of the kernels' own x_std
+    within 2e-6 (B1's MUFU integrand against torch's), and the
+    float64 Gram means within 1e-12 of a float64 product of the kernels'
+    own x_std."""
+    from repro_torch.core import measures, ordering
+    from repro_torch.kernels import step_passes
+
+    x = _step_data(b, m, w, seed=m + w)
+    before = step_passes.launches
+    x_std, c, mu, var, (cm1, cm2), gram = step_passes.standardize(x)
+    torch.cuda.synchronize()
+    assert step_passes.launches == before + 1
+    want = ordering.step_standardize(x, ordering.LocalReducer())
+    torch.testing.assert_close(mu, want[2], rtol=3e-7, atol=0)
+    torch.testing.assert_close(var, want[3], rtol=5e-7, atol=0)
+    torch.testing.assert_close(x_std, want[0], rtol=0, atol=2e-5)
+    torch.testing.assert_close(c, want[1], rtol=0, atol=2e-6)
+    wm1, wm2 = measures.nonlinear_moments(x_std, axis=-2)
+    torch.testing.assert_close(cm1, wm1, rtol=0, atol=2e-6)
+    torch.testing.assert_close(cm2, wm2, rtol=0, atol=2e-6)
+    xd = x_std.double()
+    torch.testing.assert_close(gram, xd.mT @ xd / m, rtol=0, atol=1e-12)
+    assert torch.equal(c, gram.float())
+    assert torch.equal(gram, gram.mT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,m,w", STEP_SHAPES)
+@pytest.mark.parametrize("where", ["first", "last", "padded"])
+def test_cuda_step_residualize_matches_composed(cuda_device, b, m, w, where):
+    """The kernels' residual update against the composed one: the root at
+    the first column, the last real one, or a zero padding column that
+    starts inactive (as the staged ordering's padding), with two more
+    columns inactive. Updated columns within 2e-5 relative of the
+    buffer's scale (the coefficient from the float64 Gram means against
+    the composed float32 covariance); the root's, inactive and padding
+    columns copied bit for bit; the mask the composed one."""
+    from repro_torch.core import ordering
+    from repro_torch.kernels import step_passes
+
+    x = _step_data(b, m, w, seed=7 * m + w)
+    lead = x.shape[:-2]
+    x = torch.nn.functional.pad(x, (0, 2))  # two padding columns
+    width = w + 2
+    active = torch.arange(width, device=cuda_device) < w
+    active = active & (torch.arange(width, device=cuda_device) % 5 != 3)
+    active = active.expand(*lead, width)
+    col = {"first": 0, "last": w - 1, "padded": w + 1}[where]
+    root = torch.full(lead, col, dtype=torch.int64, device=cuda_device)
+    st = ordering.LocalReducer().standardize(x)
+    before = step_passes.residualize_launches
+    got, got_active = step_passes.residualize(x, active, root, st.gram,
+                                              st.var)
+    torch.cuda.synchronize()
+    assert step_passes.residualize_launches == before + 1
+    mu, var = ordering.step_standardize(x, ordering.LocalReducer())[2:]
+    want, want_active = ordering.residualize(x, active, root, mu, var,
+                                             ordering.LocalReducer())
+    assert torch.equal(got_active, want_active)
+    scale = x.abs().amax()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5 * float(scale))
+    kept = ~want_active[..., None, :].expand_as(x)
+    assert torch.equal(got[kept], x[kept])
+
+
+@pytest.mark.gpu
+def test_cuda_step_passes_same_bits_across_widths_and_batches(cuda_device):
+    """A column's mean, variance, x_std and moments and a pair's C and Gram
+    entries are the same bits at two buffer widths (the second a subset of
+    the first's columns, in order, as after a compaction) and at two batch
+    sizes, an element's the same as the unbatched launch's."""
+    from repro_torch.kernels import step_passes
+
+    xb = _step_data(3, 5000, 100, seed=11)
+    keep = torch.tensor([c for c in range(100) if c % 4 != 1],
+                        device=cuda_device)  # 75 columns
+    full = step_passes.standardize(xb[0].contiguous())
+    narrow = step_passes.standardize(xb[0][:, keep].contiguous())
+    batch3 = step_passes.standardize(xb)
+    batch2 = step_passes.standardize(xb[1:].contiguous())
+    torch.cuda.synchronize()
+
+    def cols(out, idx=None, elem=None):
+        x_std, c, mu, var, (cm1, cm2), gram = out
+        if elem is not None:
+            x_std, c, mu, var, cm1, cm2, gram = (
+                t[elem] for t in (x_std, c, mu, var, cm1, cm2, gram))
+        if idx is not None:
+            x_std, mu, var, cm1, cm2 = (t[..., idx] for t in
+                                        (x_std, mu, var, cm1, cm2))
+            c, gram = c[idx][:, idx], gram[idx][:, idx]
+        return x_std, c, mu, var, cm1, cm2, gram
+
+    for a, b in zip(cols(full, keep), cols(narrow)):
+        assert torch.equal(a, b)
+    for a, b in zip(cols(full), cols(batch3, elem=0)):
+        assert torch.equal(a, b)
+    for a, b in zip(cols(batch3, elem=2), cols(batch2, elem=1)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_staged_order_equals_masked_with_step_kernels(cuda_device):
+    """Staged and masked orderings on the card give the same order, every
+    step through the kernels (one standardize and one residualize call a
+    step, ``path="kernel"`` on each ``order.standardize`` span)."""
+    from repro_torch import obs
+    from repro_torch.core import ordering
+    from repro_torch.kernels import step_passes
+
+    gt = simulate_lingam(m=20_000, d=40, seed=5)
+    x = torch.as_tensor(np.ascontiguousarray(gt.data, np.float32),
+                        device=cuda_device)
+    before = (step_passes.launches, step_passes.residualize_launches)
+    masked = ordering.causal_order(x)
+    assert (step_passes.launches, step_passes.residualize_launches) == (
+        before[0] + 40, before[1] + 40)
+    obs.reset()
+    obs.enable()
+    try:
+        staged = ordering.causal_order_compact(x, min_stage=4)
+        paths = {s.attrs.get("path") for r in obs.roots()
+                 for s in [r, *r.children] if s.name == "order.standardize"}
+    finally:
+        obs.disable()
+        obs.reset()
+    assert torch.equal(masked, staged)
+    assert paths == {"kernel"}
+
+
+@pytest.mark.gpu
+def test_cuda_step_passes_reject_what_they_cannot_take(cuda_device):
+    from repro_torch.kernels import step_passes
+
+    x = _step_data(None, 256, 8)
+    with pytest.raises(ValueError, match="on the card"):
+        step_passes.standardize(x.cpu())
+    with pytest.raises(TypeError):
+        step_passes.standardize(x.double())
+    with pytest.raises(TypeError):
+        step_passes.standardize(x.T)
+    st = step_passes.standardize(x)
+    active = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    root = torch.tensor(2, device=cuda_device)
+    with pytest.raises(ValueError, match="active"):
+        step_passes.residualize(x, active[:7], root, st[5], st[3])
+    with pytest.raises(ValueError, match="root"):
+        step_passes.residualize(x, active, root.int(), st[5], st[3])
+    with pytest.raises(ValueError, match="gram"):
+        step_passes.residualize(x, active, root, st[1], st[3])

@@ -608,6 +608,26 @@ def test_ordering_step_phases(compaction):
         assert names[4 * stages[0][1]] == "order.compact"
 
 
+@pytest.mark.parametrize("plan", ["local", "mesh"])
+def test_cpu_ordering_steps_take_the_composed_passes(plan):
+    """On the CPU the local plan and the mesh plan (a 1 x 1 mesh in this
+    process) run the step's composed passes: every ``order.standardize``
+    span carries ``path="composed"`` and no step-pass kernel is called."""
+    from repro_torch.kernels import step_passes
+
+    d = 5
+    part = (api.Partition(mesh=(("data", 1), ("model", 1)), chunk=64)
+            if plan == "mesh" else None)
+    before = (step_passes.launches, step_passes.residualize_launches)
+    obs.enable()
+    api.fit_fn(_x(300, d, 9), api.FitConfig(partition=part))
+    paths = [s.attrs.get("path") for s, _ in _all_spans()
+             if s.name == "order.standardize"]
+    assert paths == ["composed"] * d
+    assert (step_passes.launches,
+            step_passes.residualize_launches) == before
+
+
 @pytest.mark.parametrize("op", ["pairwise_moments",
                                 "pairwise_moment_sums_rows",
                                 "pairwise_moment_sums_slabs"])
