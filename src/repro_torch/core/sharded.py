@@ -264,30 +264,28 @@ def _finish_sharded(x, order, config: FitConfig, reducer: MeshReducer):
 def _finish_sharded_scaled(x_local, order, config: FitConfig,
                            reducer: MeshReducer, d: int):
     """The sharded finish (``gather_finish=False``): the data are never
-    reassembled. The covariance (and correlation) are all_reduced over
-    the sample shards, the solves run on pair-axis row tiles, and the
-    residual diagnostics stay on local rows. Coefficients agree with the
-    gathered finish to fp32 reduction order."""
+    reassembled. The covariance is all_reduced over the sample shards,
+    the OLS solves run on pair-axis row tiles, the adaptive lasso (from a
+    float64 covariance) runs replicated through the shared estimator, and
+    the residual diagnostics stay on local rows. Coefficients agree with
+    the gathered finish to the reduction order."""
     x = x_local[:, :d]
     mask_rows, rows_of, gather = _pair_row_tiles(reducer, order, d)
     mu = reducer.mean_over_samples(x)
     xc = reducer.mask_rows(x - mu[None, :])
-    cov = reducer.gram_mean(xc)
     if config.prune_method == "ols":
+        cov = reducer.gram_mean(xc)
         b = gather(pruning.ols_rows(cov, mask_rows, rows_of(cov)))
     elif config.prune_method == "adaptive_lasso":
-        kw = config.prune_kwargs_dict
-        var = reducer.mean_over_samples(xc * xc)
-        sd = torch.clamp(torch.sqrt(var), min=1e-12)
-        corr = reducer.gram_mean(xc / sd[None, :])
-        b_ols = gather(pruning.ols_rows(cov, mask_rows, rows_of(cov)))
-        b_ols_std = b_ols * (sd[None, :] / sd[:, None])
-        w = 1.0 / torch.clamp(torch.abs(b_ols_std),
-                              min=1e-3) ** kw.get("gamma", 1.0)
-        b_std = gather(pruning.lasso_rows(
-            corr, mask_rows, rows_of(corr), rows_of(w), kw.get("lam", 0.01),
-            float(d), kw.get("n_steps", 400)))
-        b = b_std * (sd[:, None] / sd[None, :])
+        # The local plan's estimator, replicated on every rank, from the
+        # covariance of the data centered and summed in float64.
+        xd = x.double()
+        groups = reducer.sample_groups
+        mu64 = _all_reduce(xd.sum(dim=-2), groups) / reducer.m
+        xd = reducer.mask_rows(xd - mu64[None, :])
+        cov64 = _all_reduce(xd.mT @ xd, groups) / reducer.m
+        b = pruning.adaptive_lasso_from_cov(
+            cov64, order, **config.prune_kwargs_dict).to(x.dtype)
     else:
         raise ValueError(f"unknown method: {config.prune_method}")
     b = pruning.apply_threshold(b, config.prune_threshold)

@@ -182,6 +182,75 @@ def test_fit_fn_matches_reference(method, kwargs):
                                np.asarray(want.resid_var), atol=ATOL_FIT)
 
 
+def _single_stack_lasso(x, order, lam, n_steps):
+    """The adaptive lasso with each gene's systems stacked over all d
+    genes, masked to its predecessors: a float64 LU solve for the
+    least-squares weights, batched FISTA products for the sweeps."""
+    x = x.double()
+    d = x.shape[1]
+    xc = x - x.mean(0)
+    cov = xc.T @ xc / x.shape[0]
+    sd = cov.diagonal().sqrt()
+    corr = cov / (sd[:, None] * sd[None, :])
+    mask = pruning.pred_mask(order)
+    mm = mask[:, :, None] & mask[:, None, :]
+    a = torch.where(mm, corr[None], 0.0)
+    g = torch.where(mask, corr, 0.0)
+    eye_off = torch.diag_embed(torch.where(mask, 0.0, 1.0))
+    b_ols = torch.linalg.solve(a + eye_off, g[..., None])[..., 0]
+    thresh = lam / torch.clamp(b_ols.abs(), min=1e-3) / d
+    b = torch.zeros_like(g)
+    y, t = b, 1.0
+    for _ in range(n_steps):
+        grad = torch.bmm(a, y[..., None])[..., 0] - g
+        b_new = torch.where(mask, pruning._soft_threshold(y - grad / d,
+                                                          thresh), 0.0)
+        t_new = 0.5 * (1.0 + (1.0 + 4.0 * t * t) ** 0.5)
+        y = b_new + ((t - 1.0) / t_new) * (b_new - b)
+        b, t = b_new, t_new
+    return b * (sd[:, None] / sd[None, :])
+
+
+@pytest.mark.parametrize("path", ["float64", "float32", "from_cov"])
+def test_adaptive_lasso_tiles_give_the_single_stack(path):
+    """The adaptive lasso in causal order (one Cholesky factor for the
+    least-squares weights, one masked (d, d) product a FISTA sweep) gives
+    what each gene's systems stacked over all genes give: from float64
+    and float32 data, and from a covariance."""
+    gt = simulate_lingam(m=2000, d=13, seed=9)
+    x = torch.from_numpy(gt.data)
+    order = torch.from_numpy(np.asarray(gt.order))
+    kw = {"lam": 0.05, "n_steps": 200}
+    if path == "from_cov":
+        xc = x.double() - x.double().mean(0)
+        got = pruning.adaptive_lasso_from_cov(
+            (xc.T @ xc / x.shape[0]).float(), order, **kw)
+    else:
+        got = pruning.adaptive_lasso_adjacency(
+            x.double() if path == "float64" else x, order, **kw)
+    want = _single_stack_lasso(x, order, **kw)
+    assert got.dtype == (torch.float64 if path == "float64"
+                         else torch.float32)
+    atol = 1e-12 if path == "float64" else 1e-6
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_adaptive_lasso_takes_exactly_collinear_genes(dtype):
+    """A duplicated column makes the correlation singular: the weights'
+    factor takes a ridge, B stays finite, and the copy's row is its
+    twin's coefficient shrunk by lam."""
+    gt = simulate_lingam(m=2000, d=8, seed=3)
+    x = torch.from_numpy(gt.data).to(dtype)
+    x = torch.cat([x, x[:, 3:4]], dim=1)
+    order = list(np.asarray(gt.order))
+    order.insert(order.index(3) + 1, 8)
+    b = pruning.adaptive_lasso_adjacency(x, torch.tensor(order), lam=0.05)
+    assert torch.isfinite(b).all()
+    np.testing.assert_allclose(b[8].double().numpy(),
+                               np.eye(9)[3] * 0.95, atol=1e-6)
+
+
 def test_ols_matches_sequential_baseline():
     gt = simulate_lingam(m=3000, d=8, seed=6)
     order = seq.causal_order_sequential(gt.data)

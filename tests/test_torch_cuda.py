@@ -625,9 +625,10 @@ def test_cuda_spans_lie_on_the_profilers_clock(cuda_device):
 # ---------------------------------------------------------------------------
 
 # (b, m, w): unbatched and batched buffers, widths off the 64-column Gram
-# tile and the 128-column block, sample counts off the 32-sample slab.
+# tile and the 128-column block, sample counts off the 32-sample slab; the
+# gene screen's width, 964.
 STEP_SHAPES = [(None, 1000, 7), (None, 4097, 130), (None, 3999, 487),
-               (3, 2048, 65), (2, 333, 64)]
+               (3, 2048, 65), (2, 333, 64), (None, 8192, 964)]
 
 
 def _step_data(b, m, w, seed=0, device="cuda"):
@@ -774,6 +775,33 @@ def test_cuda_staged_order_equals_masked_with_step_kernels(cuda_device):
         obs.reset()
     assert torch.equal(masked, staged)
     assert paths == {"kernel"}
+
+
+@pytest.mark.gpu
+def test_cuda_gene_screen_fit_staged_equals_masked_at_width_964(cuda_device):
+    """The gene screen's estimator (adaptive lasso, lam 0.02) at 8192 x
+    964 through the facade: the staged fit gives the masked scan's order,
+    and so the same adjacency bit for bit; every one of the 964 steps
+    runs the step-pass kernels."""
+    from repro_torch.core import DirectLiNGAM
+    from repro_torch.data.simulate import simulate_gene_perturb
+    from repro_torch.kernels import step_passes
+
+    x, _, _ = simulate_gene_perturb(m=8192, d=964, n_interventions=248,
+                                    seed=2147483693)
+    fits = {}
+    for compaction in ("none", "staged"):
+        before = (step_passes.launches, step_passes.residualize_launches)
+        fits[compaction] = DirectLiNGAM(
+            prune_method="adaptive_lasso", prune_kwargs={"lam": 0.02},
+            compaction=compaction).fit(x)
+        assert (step_passes.launches, step_passes.residualize_launches) == (
+            before[0] + 964, before[1] + 964)
+    masked, staged = fits["none"], fits["staged"]
+    np.testing.assert_array_equal(staged.causal_order_, masked.causal_order_)
+    np.testing.assert_array_equal(staged.adjacency_, masked.adjacency_)
+    assert sorted(staged.causal_order_.tolist()) == list(range(964))
+    assert np.isfinite(staged.adjacency_).all()
 
 
 @pytest.mark.gpu

@@ -579,6 +579,44 @@ def test_var_fit_records_the_var_estimate():
     assert obs.roots()[0].attrs == {"lags": 1}
 
 
+@pytest.mark.parametrize("method", ["ols", "adaptive_lasso"])
+def test_pruning_records_its_solve_and_sweeps(method):
+    """Inside ``fit.pruning``, the least-squares solve is one
+    ``prune.ols`` span (d, the rows solved, the bytes of its systems: a
+    float32 (rows, d, d) stack for OLS, the float64 (d, d) correlation the
+    adaptive lasso factors) and the adaptive lasso's FISTA sweeps one
+    ``prune.lasso`` span (iterations, rows, the correlation's bytes); the
+    counters add up the systems and the iterations. Off, neither is
+    recorded."""
+    d, steps = 6, 37
+    cfg = api.FitConfig(prune_method=method,
+                        prune_kwargs={"lam": 0.05, "n_steps": steps}
+                        if method == "adaptive_lasso" else {})
+    x = _x(300, d, 10)
+    api.fit_fn(x, cfg)
+    assert obs.roots() == [] and metrics.snapshot()["counters"] == {}
+    obs.enable()
+    api.fit_fn(x, cfg)
+    (pruning_span,) = [s for s, _ in _all_spans() if s.name == "fit.pruning"]
+    names = [c.name for c in pruning_span.children]
+    lasso = method == "adaptive_lasso"
+    assert names == (["prune.ols", "prune.lasso"] if lasso
+                     else ["prune.ols"])
+    assert pruning_span.children[0].attrs == {
+        "d": d, "rows": d,
+        "system_bytes": d * d * 8 if lasso else d * d * d * 4}
+    counters = metrics.snapshot()["counters"]
+    assert counters["prune.systems"] == d
+    if lasso:
+        assert pruning_span.children[1].attrs == {
+            "iterations": steps, "rows": d, "system_bytes": d * d * 8}
+        assert counters["prune.lasso_iterations"] == steps
+    else:
+        assert "prune.lasso_iterations" not in counters
+    assert not [n for n in _names_under("fit.ordering")
+                if n.startswith("prune.")]
+
+
 @pytest.mark.parametrize("compaction", ["none", "staged"])
 def test_ordering_step_phases(compaction):
     """Each of the d steps is ``order.standardize``, ``kernels.moments``,
