@@ -347,20 +347,22 @@ def step_passes_phase(dev, cuda_ms):
         lead, (m, w) = shape[:-2], shape[-2:]
         x = (torch.empty(shape, device=dev).exponential_(generator=gen)
              * 2.0 + 5.0)
-        active = torch.ones((*lead, w), dtype=torch.bool, device=dev)
         root = torch.full(lead, w // 3, dtype=torch.int64, device=dev)
+        labels = torch.arange(w, device=dev).expand(*lead, w).contiguous()
+        order = torch.empty_like(labels)
         step_passes.launches = step_passes.residualize_launches = 0
         out = step_passes.standardize(x)
         again = step_passes.standardize(x)
-        xn, an = step_passes.residualize(x, active, root, out[5], out[3])
+        xn, _ = step_passes.residualize(x, root, out[5], out[3], labels,
+                                        order, 0)
         torch.cuda.synchronize()
         counts = (step_passes.launches, step_passes.residualize_launches)
         repeat = all(torch.equal(a, b) for a, b in zip(
             (*out[:4], *out[4], out[5]), (*again[:4], *again[4], again[5])))
         want = ordering.step_standardize(x, plain)
         cm = measures.nonlinear_moments(out[0], axis=-2)
-        xw, aw = ordering.residualize(x, active, root, want[2], want[3],
-                                      plain)
+        xw, _ = ordering.compact_residualize(x, root, want[2], want[3],
+                                             labels, order.clone(), 0, plain)
         errs = {
             "mu": float(((out[2] - want[2]).abs() / want[2].abs()).max()),
             "var": float(((out[3] - want[3]).abs() / want[3]).max()),
@@ -383,12 +385,13 @@ def step_passes_phase(dev, cuda_ms):
                 and torch.equal(out[1][keep][:, keep], narrow[1]))
         std_ms = cuda_ms(lambda: step_passes.standardize(x), 10)
         res_ms = cuda_ms(lambda: step_passes.residualize(
-            x, active, root, out[5], out[3]), 10)
+            x, root, out[5], out[3], labels, order, 0), 10)
 
         def composed():
             xs, _, mu, var = ordering.step_standardize(x, plain)
             plain.col_moments(xs)
-            ordering.residualize(x, active, root, mu, var, plain)
+            ordering.compact_residualize(x, root, mu, var, labels, order, 0,
+                                         plain)
 
         plain_ms = cuda_ms(composed, 3)
         nbytes = x.numel() * 4
@@ -424,7 +427,8 @@ def step_passes_phase(dev, cuda_ms):
 
 
 def walk_against_plain(x, kernel, plain, atol, x_plain=None):
-    """Replay the kernel fit's masked scan on ``x``. At every step the
+    """Replay the kernel fit's ordering on ``x``, the buffer compacted at
+    every step as the fit compacts it on the card. At every step the
     plain backend's moments must agree with the kernel's within ``atol``
     off the diagonal, and the plain backend's scores must rank the
     kernel's root best within the score tolerance that ``atol`` implies.
@@ -444,11 +448,14 @@ def walk_against_plain(x, kernel, plain, atol, x_plain=None):
     from repro_torch.core import ordering
 
     d = x.shape[1]
-    active = torch.ones(d, dtype=torch.bool, device=x.device)
-    off = ~torch.eye(d, dtype=torch.bool, device=x.device)
-    xp = x_plain
-    order, worst, tied, ratio = [], 0.0, 0, 0.0
-    for step in range(d):
+    labels = torch.arange(d, device=x.device)
+    order = torch.empty_like(labels)
+    xp, labels_p, order_p = x_plain, labels, torch.empty_like(labels)
+    worst, tied, ratio = 0.0, 0, 0.0
+    for step in range(d - 1):  # the last column needs no step
+        w = d - step
+        active = torch.ones(w, dtype=torch.bool, device=x.device)
+        off = ~torch.eye(w, dtype=torch.bool, device=x.device)
         st = kernel.standardize(x)  # the step-pass kernels on the card
         x_std, c = st.x_std, st.c
         cm = st.col_moments or kernel.col_moments(x_std)
@@ -468,7 +475,7 @@ def walk_against_plain(x, kernel, plain, atol, x_plain=None):
         if xp is None:
             tol = score_tolerance(*cmp, p1, p2, active, atol)
         else:
-            col_err = max(float((a - b)[active].abs().max())
+            col_err = max(float((a - b).abs().max())
                           for a, b in zip(cm, cmp))
             worst = max(worst, col_err)
             tol = score_tolerance(*cmp, p1, p2, active, max(atol, err),
@@ -481,14 +488,17 @@ def walk_against_plain(x, kernel, plain, atol, x_plain=None):
             if gap > float(tol[root] + tol[best]):
                 fail(f"step {step}: plain scores rank root {best} above the "
                      f"kernel's {root} by {gap:.3e}, beyond the tolerance")
-        x, active_next, r = ordering.ordering_step(x, active, kernel)
-        if int(r) != root:
-            fail(f"step {step}: replay picked {int(r)}, expected {root}")
+        want = int(labels[root])
+        x, labels = ordering._active_width_step(x, active, labels, order,
+                                                step, kernel)
+        if int(order[step]) != want:
+            fail(f"step {step}: replay picked {int(order[step])}, expected "
+                 f"{want}")
         if xp is not None:
-            xp, _ = ordering.residualize(xp, active, r, mu_p, var_p, plain)
-        active = active_next
-        order.append(root)
-    return np.array(order), worst, tied, ratio
+            xp, labels_p = ordering.compact_residualize(
+                xp, torch.tensor(root, device=x.device), mu_p, var_p,
+                labels_p, order_p, step, plain)
+    return order.cpu().numpy(), worst, tied, ratio
 
 
 def parting_tie(x, order_a, order_b, reducer, atol):
@@ -547,9 +557,9 @@ def paper_experiments(dev, cuda_ms, peaks):
             row = torch_speedup.shape_row(m_s, d_s, dev, reps=3)
         except RuntimeError as err:  # orders part where no tie is
             fail(str(err))
-        if row["b1_launches_per_ordering"] != d_s:
+        if row["b1_launches_per_ordering"] != d_s - 1:
             fail(f"({m_s}, {d_s}): {row['b1_launches_per_ordering']} B1 "
-                 f"launches per ordering, expected {d_s}")
+                 f"launches per ordering, expected {d_s - 1}")
         print(f"speed-up ({m_s}, {d_s}): sequential {row['sequential_s']:.3f}"
               f" s (host), kernel ordering {row['kernel_ordering_s']:.4f} s, "
               f"blocked {row['blocked_ordering_s']:.4f} s, fit "
@@ -645,7 +655,8 @@ def paper_experiments(dev, cuda_ms, peaks):
           f"memory {gene_peak / 2**30:.2f} GiB")
     gene_vals = [v for r in (dl_g, nt_g) for v in
                  (r["inll"], r["imae"], r["noise_scale"])]
-    if not np.all(np.isfinite(gene_vals)) or dl_g["b1_launches"] != gene["d"]:
+    if (not np.all(np.isfinite(gene_vals))
+            or dl_g["b1_launches"] != gene["d"] - 1):
         fail("the gene study is not finite, or its fit missed B1")
     # B1 at the fit's first step: timed, and a 64-row tile of pairs held
     # against the float64 plain version.
@@ -935,7 +946,8 @@ def telemetry_phase(dev, peaks, gt, gt_b, boot_kw, reqs, series, stream_cfg,
           "runs of one name folded):\n" + "\n".join(tree))
     n_dispatch = sum(c.name == "kernels.dispatch"
                      for s in trees[0].children for c in s.children)
-    if trees[0].name != "fit.local" or n_dispatch != gt.data.shape[1]:
+    # one a step; the last column needs none
+    if trees[0].name != "fit.local" or n_dispatch != gt.data.shape[1] - 1:
         fail(f"the fit's span tree is not fit.local with one dispatch span "
              f"per ordering step: {trees[0].name}, {n_dispatch}")
     # (b) the rolling refit of varlingam-stream-487's last window
@@ -1917,9 +1929,9 @@ def main() -> int:
         step_launches = (step_passes.launches,
                          step_passes.residualize_launches)
         step_calls[compaction] = step_launches
-        if step_launches != (wl.d, wl.d):
-            fail(f"expected {wl.d} step-pass calls of each wrapper, got "
-                 f"{step_launches}")
+        if step_launches != (wl.d - 1, wl.d - 1):
+            fail(f"expected {wl.d - 1} step-pass calls of each wrapper (the "
+                 f"last column needs no step), got {step_launches}")
         consistent = order_consistent(model.causal_order_, gt.adjacency)
         finite = bool(np.isfinite(model.adjacency_).all()
                       and np.isfinite(model.resid_var_).all())
@@ -1928,8 +1940,8 @@ def main() -> int:
               f"{compaction!r}: {fit_s:.3f} s, kernel launches {n_launch}, "
               f"order consistent with the true DAG {consistent}, "
               f"finite {finite}")
-        if n_launch != wl.d:
-            fail(f"expected {wl.d} kernel launches, got {n_launch}")
+        if n_launch != wl.d - 1:
+            fail(f"expected {wl.d - 1} kernel launches, got {n_launch}")
         if not (consistent and finite):
             fail(f"full-size fit ({compaction}) is wrong")
     if not np.array_equal(fits["none"][0].causal_order_,
@@ -1968,7 +1980,7 @@ def main() -> int:
           f"'none'): {var_fit_s:.3f} s, B1 launches {var_launches}, thetas "
           f"finite {thetas_ok}, true edges forward "
           f"{forward_share(var_model.causal_order_, b0_v):.3f}")
-    if var_launches != wv.d or not thetas_ok:
+    if var_launches != wv.d - 1 or not thetas_ok:
         fail("the VarLiNGAM facade fit is wrong")
     resid = torch.from_numpy(var_model.residuals_).to(dev)
     torch.cuda.synchronize()
@@ -2046,8 +2058,8 @@ def main() -> int:
     if len(refits) != n_chunks - sw.window_chunks + 1:
         fail(f"expected {n_chunks - sw.window_chunks + 1} refits, got "
              f"{len(refits)}")
-    if stream_b1 or any(r["launches"] != sw.d for r in refits):
-        fail(f"expected {sw.d} B2 launches (one per ordering step) and no "
+    if stream_b1 or any(r["launches"] != sw.d - 1 for r in refits):
+        fail(f"expected {sw.d - 1} B2 launches (one per ordering step) and no "
              f"B1 launch per refit")
     # The last window refit again: three times untraced for its wall time,
     # then once traced for B2's kernel time and the device's busy time.
@@ -2095,8 +2107,8 @@ def main() -> int:
               f"the untraced median {refit_wall:.3f} s ({walls} s), "
               f"{1.0 - prof_busy / prof_wall:.1%} of the traced "
               f"{prof_wall:.3f} s")
-    print(f"stream refit: B2 kernel time {refit_b2_s * 1e3:.2f} ms ({sw.d} "
-          f"launches), {refit_b2_s / refit_wall:.1%} of the untraced median "
+    print(f"stream refit: B2 kernel time {refit_b2_s * 1e3:.2f} ms "
+          f"({sw.d - 1} launches), {refit_b2_s / refit_wall:.1%} of the untraced median "
           f"refit {refit_wall:.3f} s")
     # Each refit against the from-scratch fit of the same window: equal
     # orders (thetas then within ATOL_STREAM), or orders that part only
@@ -2297,8 +2309,8 @@ def main() -> int:
           f"launches {boot_rows}")
     if len(seen["vmap"]) != 1 or seen["loop"]:
         fail("strategy 'auto' did not run the batched engine")
-    if boot_launches != d_b or boot_rows:
-        fail(f"expected {d_b} B1 launches (one per ordering step for all "
+    if boot_launches != d_b - 1 or boot_rows:
+        fail(f"expected {d_b - 1} B1 launches (one per ordering step for all "
              f"{n_boot} resamples), got {boot_launches} (B2 {boot_rows})")
     pairwise_stats.launches = 0
     fits_v = seen["vmap"][0]  # held: the loop's peak is taken beside it
@@ -2314,8 +2326,8 @@ def main() -> int:
     print(f"bootstrap, strategy 'loop' on the same indices: {loop_s:.3f} s, "
           f"{n_boot / loop_s:.2f} fits/s; B1 launches {loop_launches}; vmap "
           f"over loop {vmap_s / loop_s:.3f}")
-    if len(seen["loop"]) != n_boot or loop_launches != n_boot * d_b:
-        fail(f"expected {n_boot} loop fits of {d_b} B1 launches each")
+    if len(seen["loop"]) != n_boot or loop_launches != n_boot * (d_b - 1):
+        fail(f"expected {n_boot} loop fits of {d_b - 1} B1 launches each")
     stack_bytes = 4 * n_boot * m_b * d_b
     print(f"bootstrap peak device memory above what was allocated before "
           f"(torch.cuda.max_memory_allocated): vmap {peak_bytes['vmap']} B "
@@ -2545,7 +2557,7 @@ def main() -> int:
           f"{requests_per_s:.2f} requests/s; fit_many calls "
           f"{fit_calls}; B1 launches {burst_b1}, B2 launches {burst_b2}")
     if fit_calls != [(8, wv.m, wv.d), (3, *mid)] or (
-            burst_b1 != wv.d + mid[1] or burst_b2):
+            burst_b1 != wv.d - 1 + mid[1] - 1 or burst_b2):
         fail("expected one fit_many per shape and one B1 launch per "
              "ordering step")
     serve_cfg = engine.config
@@ -2667,13 +2679,13 @@ def main() -> int:
             or len(final["calls"]) != 1):
         fail("the last post did not flush all 8 sessions in one refit")
     for f in flushes:
-        if (f["errors"] or f["b2"] != sw.d * len(f["calls"])
+        if (f["errors"] or f["b2"] != (sw.d - 1) * len(f["calls"])
                 or sum(c[0] for c in f["calls"]) != f["sessions"]):
             fail("a flush is not one fit_many_from_stats per window shape "
                  "with one B2 launch per ordering step")
-    if serve_b1 or serve_b2 != sw.d * len(fmfs_calls):
+    if serve_b1 or serve_b2 != (sw.d - 1) * len(fmfs_calls):
         fail(f"stream B2 launches {serve_b2} (B1 {serve_b1}) against "
-             f"{sw.d} per batched refit")
+             f"{sw.d - 1} per batched refit")
     full = [f["s"] for f in flushes[:real_flush_n]
             if f["sessions"] == len(sids) and len(f["calls"]) == 1]
     flush_s = float(np.median(full))

@@ -118,11 +118,15 @@ class FitConfig:
     ``backend``: ``None`` (the CUDA kernel on a card, its plain version on
     the CPU), ``"cuda"``, ``"blocked"`` or ``"ref"``.
 
-    ``compaction`` selects the ordering schedule:
+    ``compaction`` selects the ordering schedule of the composed path
+    (the CPU, and the mesh plan):
       * ``"none"``   -- the full masked scan (d identical steps).
       * ``"staged"`` -- active-set compaction every stage
                         (``ordering.compact_order_impl``): same order,
                         about half the pair work.
+    On the card the local plan's step kernels compact the buffer at every
+    step whichever is set (``ordering.active_width_order_impl``): the same
+    order again, with the pair work the ordering needs, d^3 / 3.
 
     ``moment_chunk``: when set, the ordering's pairwise moments
     accumulate over (moment_chunk, d) sample slabs

@@ -37,22 +37,33 @@ launches in all, where the composed step made ~70). Their plain versions
 are the composed functions here, :func:`step_standardize` (through the
 reducer's ``mean_over_samples`` and ``gram_mean``),
 :func:`repro_torch.core.measures.nonlinear_moments` (``col_moments``) and
-:func:`residualize`, which the local plan takes for a CPU tensor and the
-mesh plan everywhere: its reductions cross the shards between the passes.
+:func:`compact_residualize`, which the local plan takes for a CPU tensor;
+the mesh plan runs the composed passes everywhere (its reductions cross
+the shards between the passes), with the masked :func:`residualize`.
+
+The kernels' residual update leaves the root's column out of the buffer
+it writes, so on the card (:meth:`LocalReducer.kernel_path`) both
+:func:`masked_order_impl` and :func:`compact_order_impl` run
+:func:`active_width_order_impl`: step k at width w = d - k, every column
+active, w (w - 1) pairs in the moment kernel, and no step at w = 1. The
+composed path keeps the schedule it is given: d steps at width d for the
+masked scan, stage widths for the staged one.
 
 With telemetry on, each step's phases are spans (``order.standardize``,
 with ``path="kernel"`` or ``path="composed"``, the kernels' column moments
 and correlation inside it; ``order.scores``; ``order.residualize``; the
-moment call between them is ``kernels.dispatch`` and ``kernels.moments``)
-and each stage's gather in the staged ordering is ``order.compact``.
+moment call between them is ``kernels.dispatch`` and ``kernels.moments``),
+each stage's gather in the staged ordering is ``order.compact``, and the
+counter ``order.pair_terms`` adds up the w (w - 1) pairs of each moment
+call over the batch.
 
-:func:`compact_order_impl` shrinks the buffer to the surviving columns
-in stages and returns the same order as :func:`masked_order_impl`. That
-needs every per-column quantity to come out the same at every buffer
-width. Scores of equally valid roots (independent exogenous variables)
-differ only at the level of fp32 rounding, so a reduction whose order
-depends on the width (torch's column sums, cuBLAS's product) would break
-ties differently in the two layouts. The reducer therefore sums over
+:func:`compact_order_impl` and :func:`active_width_order_impl` shrink the
+buffer to the surviving columns and return the same order as
+:func:`masked_order_impl`. That needs every per-column quantity to come
+out the same at every buffer width. Scores of equally valid roots
+(independent exogenous variables) differ only at the level of fp32
+rounding, so a reduction whose order depends on the width (torch's column
+sums, cuBLAS's product) would break ties differently in the two layouts. The reducer therefore sums over
 samples and pairs in float64 and rounds the result to float32, and the
 moment kernel's sums do not depend on the width; the step-pass kernels sum
 in an order fixed by the sample count alone, so their statistics, moments
@@ -66,6 +77,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops, step_passes
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 from . import measures
@@ -111,6 +123,9 @@ class LocalReducer:
         :func:`repro_torch.kernels.step_passes.residualize`); on a CPU
         tensor their plain version, :func:`step_standardize` over the two
         methods above
+      * ``kernel_path(x)`` -- whether the steps on ``x`` run the step-pass
+        kernels (a CUDA tensor), and so the ordering compacted at every
+        step
       * ``mask_rows(v)`` -- zero the rows that are sample padding
         (identity here; a mesh shard carries a zero-padded tail)
       * ``gather_rows(rows)`` -- the full moment matrices from the plan's
@@ -135,8 +150,11 @@ class LocalReducer:
         v = v.double()
         return ((v.mT @ v) / v.shape[-2]).float()
 
+    def kernel_path(self, x):
+        return x.is_cuda
+
     def standardize(self, x):
-        if x.is_cuda:
+        if self.kernel_path(x):
             return StepStats(*step_passes.standardize(x))
         if x.device.type != "cpu":
             raise ValueError(f"no step-pass kernels for {x.device}")
@@ -209,8 +227,26 @@ def ordering_scores(x, active, *, backend=None):
     return step_scores(cm1, cm2, m1, m2, active), st.x_std, st.c
 
 
+def _step_root(x, active, reducer):
+    """A step's standardization and root: the :class:`StepStats` of ``x``
+    and the argmax of the scores over ``active``."""
+    with obs_trace.span("order.standardize") as sp:
+        st = reducer.standardize(x)
+        sp.set(path="composed" if st.gram is None else "kernel")
+    w = x.shape[-1]
+    obs_metrics.inc("order.pair_terms",
+                    w * (w - 1) * (x.shape[0] if x.dim() == 3 else 1))
+    rows1, rows2 = reducer.moment_rows(st.x_std, st.c)
+    m1, m2 = reducer.gather_rows(rows1), reducer.gather_rows(rows2)
+    with obs_trace.span("order.scores"):
+        cm1, cm2 = st.col_moments or reducer.col_moments(st.x_std)
+        k_list = step_scores(cm1, cm2, m1, m2, active)
+        root = torch.argmax(k_list, dim=-1)  # first maximum, as jnp.argmax
+    return st, root
+
+
 def ordering_step(x, active, reducer):
-    """One masked ordering step.
+    """One masked ordering step, on the composed passes.
 
     Args:
       x:       (m, width) working data, or a batch (b, m, width).
@@ -222,22 +258,10 @@ def ordering_step(x, active, reducer):
       (x_new, active_new, root): residualized data, updated mask, and
       the column chosen this step as a 0-d device tensor, or (b,).
     """
-    with obs_trace.span("order.standardize") as sp:
-        st = reducer.standardize(x)
-        sp.set(path="composed" if st.gram is None else "kernel")
-    rows1, rows2 = reducer.moment_rows(st.x_std, st.c)
-    m1, m2 = reducer.gather_rows(rows1), reducer.gather_rows(rows2)
-    with obs_trace.span("order.scores"):
-        cm1, cm2 = st.col_moments or reducer.col_moments(st.x_std)
-        k_list = step_scores(cm1, cm2, m1, m2, active)
-        root = torch.argmax(k_list, dim=-1)  # first maximum, as jnp.argmax
+    st, root = _step_root(x, active, reducer)
     with obs_trace.span("order.residualize"):
-        if st.gram is None:
-            x_new, active_new = residualize(x, active, root, st.mu, st.var,
-                                            reducer)
-        else:
-            x_new, active_new = step_passes.residualize(
-                x, active, root, st.gram, st.var)
+        x_new, active_new = residualize(x, active, root, st.mu, st.var,
+                                        reducer)
     return x_new, active_new, root
 
 
@@ -259,13 +283,76 @@ def residualize(x, active, root, mu, var, reducer):
     return x - xr * update[..., None, :], active & not_root
 
 
+def survivors(root, w):
+    """(..., w - 1) int64: the column of a w-wide buffer that column j' of
+    the buffer without ``root``'s column holds, j' + (j' >= root)."""
+    cols = torch.arange(w - 1, device=root.device)
+    return cols + (cols >= root[..., None])
+
+
+def compact_residualize(x, root, mu, var, labels, order, k, reducer):
+    """Plain version of :func:`repro_torch.kernels.step_passes.residualize`:
+    :func:`residualize` with every column active, then the root's column
+    and label left out (:func:`survivors`); writes ``labels[root]`` at
+    position ``k`` of ``order`` and, when one column survives, its label
+    at ``k + 1``. Returns (x_new (..., m, w - 1), labels_new (..., w - 1))."""
+    w = x.shape[-1]
+    active = torch.ones(w, dtype=torch.bool, device=x.device)
+    x_res, _ = residualize(x, active, root, mu, var, reducer)
+    keep = survivors(root, w)
+    x_new = torch.gather(x_res, -1,
+                         keep[..., None, :].expand(*x.shape[:-1], w - 1))
+    labels_new = torch.gather(labels, -1, keep)
+    order[..., k] = torch.gather(labels, -1, root[..., None])[..., 0]
+    if w == 2:
+        order[..., k + 1] = labels_new[..., 0]
+    return x_new, labels_new
+
+
+def _active_width_step(x, active, labels, order, k, reducer):
+    st, root = _step_root(x, active, reducer)
+    with obs_trace.span("order.residualize"):
+        if st.gram is None:
+            return compact_residualize(x, root, st.mu, st.var, labels,
+                                       order, k, reducer)
+        return step_passes.residualize(x, root, st.gram, st.var, labels,
+                                       order, k)
+
+
+def active_width_order_impl(x, reducer):
+    """The ordering compacted at every step: step k runs at width
+    w = d - k, every column of the buffer active (the mask a view of one
+    all-true tensor), and the residual update writes the w - 1 surviving
+    columns, their labels and the root's label into the order; the last
+    column needs no step. Returns the order as :func:`masked_order_impl`
+    does, the same one: every per-column quantity is the same at every
+    width. On the card the kernels' update does the bookkeeping; on the
+    CPU :func:`compact_residualize`."""
+    lead, d = x.shape[:-2], x.shape[-1]
+    x = x.float().contiguous()
+    labels = torch.arange(d, device=x.device).expand(*lead, d).contiguous()
+    if d == 1:
+        return labels
+    order = torch.empty_like(labels)
+    all_active = torch.ones(d, dtype=torch.bool, device=x.device)
+    for k in range(d - 1):
+        w = d - k
+        x, labels = _active_width_step(
+            x, all_active[:w].expand(*lead, w), labels, order, k, reducer)
+    return order
+
+
 def masked_order_impl(x, reducer, *, d=None):
     """Full masked scan: d identical steps at constant width. Returns the
     order as a (d,) int64 tensor on ``x``'s device, or (b, d) for a batch
     (b, m, d). ``d`` is the number of real variables; columns at index
-    >= d (mesh padding) start inactive and are never selected."""
+    >= d (mesh padding) start inactive and are never selected. Where the
+    reducer runs the step-pass kernels this is
+    :func:`active_width_order_impl`, the same order."""
     width = x.shape[-1]
     d = width if d is None else d
+    if reducer.kernel_path(x):
+        return active_width_order_impl(x, reducer)
     x = x.float().contiguous()  # sample-major rows, as the kernel reads them
     active = (torch.arange(width, device=x.device) < d).expand(
         *x.shape[:-2], width)
@@ -317,16 +404,20 @@ def compact_order_impl(x, reducer, *, d=None, frac=0.25, min_stage=8):
     all elements of a batch share each width. ``d`` is the number of real
     variables (columns past it are mesh padding); buffer widths stay
     multiples of ``reducer.col_multiple``, the freed slots zeroed and
-    inactive."""
+    inactive. Where the reducer runs the step-pass kernels this is
+    :func:`active_width_order_impl`, which compacts at every step."""
     lead, width = x.shape[:-2], x.shape[-1]
     d = width if d is None else d
+    schedule = _stage_schedule(d, frac, min_stage)
+    if reducer.kernel_path(x):
+        return active_width_order_impl(x, reducer)
     col_multiple = reducer.col_multiple
     x = x.float().contiguous()
     # current column -> original, per element
     labels = torch.arange(width, device=x.device).expand(*lead, width)
     active = (torch.arange(width, device=x.device) < d).expand(*lead, width)
     parts = []
-    for w_logical, n_steps in _stage_schedule(d, frac, min_stage):
+    for w_logical, n_steps in schedule:
         roots = []
         for _ in range(n_steps):
             x, active, root = ordering_step(x, active, reducer)

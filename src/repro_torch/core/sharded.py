@@ -160,6 +160,11 @@ class MeshReducer:
         # Padded sample rows must stay exactly zero *after* centering.
         return torch.where(self.valid_rows(v.device), v, 0.0)
 
+    def kernel_path(self, x):
+        # The composed passes reduce across the shards: the masked scan and
+        # the staged schedule keep their widths.
+        return False
+
     def standardize(self, x):
         if not self.fused_standardize:
             return ordering.StepStats(*ordering.step_standardize(x, self))

@@ -30,10 +30,13 @@
 //      order, writes C = float32(S / m) as gram_mean rounds it and the
 //      float64 G = S / m, each at (i, j) and (j, i), and the column
 //      moments' means.
-//   4. residualize_kernel: x_j - coef_j x_root for the active non-root
-//      columns, coef_j = G[root, j] sqrt(var_j / var_root): the root's
+//   4. residualize_kernel: x_j - coef_j x_root for every column but the
+//      root, coef_j = G[root, j] sqrt(var_j / var_root): the root's
 //      covariances from the float64 sums the step already has, with no read
-//      of x to form them. The root stays on the device.
+//      of x to form them. It writes the w - 1 surviving columns into a new
+//      (m, w - 1) buffer, so the next step runs at the active width, and
+//      keeps the labels: the surviving columns' original indices, the
+//      root's into the order. The root stays on the device.
 //
 // What bounds it: bytes, but for the Gram product. A step reads the (m, w)
 // buffer three times and x_std once, and writes x_std and the residualized
@@ -61,8 +64,8 @@
 // merge kernels. No atomics. A column's statistics, moments and each
 // pair's C entry are the same bits at every buffer width, column position,
 // batch size and run (the tensor cores' products and sums do not depend on
-// where a column sits in a tile): the staged ordering sees the masked
-// scan's numbers.
+// where a column sits in a tile): the ordering compacted at every step sees
+// the masked scan's numbers.
 //
 // Every launcher returns a cudaError_t as int so that the caller can raise.
 
@@ -450,40 +453,50 @@ __global__ void finish_kernel(const double* __restrict__ gram_part,
   }
 }
 
-// x_new = x - coef x_root over the active non-root columns, a copy of x
-// elsewhere; active_new = active without the root (written by the blocks
-// at sample group 0).
+// The residual update with the buffer compacted: column j of x (b, m, w)
+// other than the root, x_j - coef_j x_root, written at column
+// j - (j > root) of x_new (b, m, w - 1), its label at the same place of
+// labels_new (b, w - 1); the root's label at order[k] and, when one column
+// survives, that column's label at order[k + 1] (order (b, d); the labels
+// and the order written by the blocks at sample group 0). Each element
+// drops its own root.
 __global__ void __launch_bounds__(kColThreads)
 residualize_kernel(const float* __restrict__ x, const long long* __restrict__ root,
-                   const unsigned char* __restrict__ active,
                    const double* __restrict__ gram,
-                   const float* __restrict__ var, float* __restrict__ x_new,
-                   unsigned char* __restrict__ active_new, long long m, int w,
-                   int col_tiles, int rows_per_block) {
+                   const float* __restrict__ var,
+                   const long long* __restrict__ labels,
+                   float* __restrict__ x_new,
+                   long long* __restrict__ labels_new,
+                   long long* __restrict__ order, long long m, int w, int d,
+                   int k, int col_tiles, int rows_per_block) {
   const int grp = blockIdx.x / col_tiles;
   const int col = (blockIdx.x - grp * col_tiles) * kColThreads + threadIdx.x;
   if (col >= w) return;
   const long long elem = blockIdx.y;
   const int r = (int)root[elem];
-  const bool act = active[elem * w + col] != 0;
-  const bool upd = act && col != r;
-  if (grp == 0) active_new[elem * w + col] = upd ? 1 : 0;
-  float coef = 0.0f;
-  if (upd) {
-    const double g = gram[(elem * w + r) * (long long)w + col];
-    coef = (float)(g * sqrt((double)var[elem * w + col] /
-                            (double)var[elem * w + r]));
+  const int wn = w - 1;
+  const long long label = labels[elem * w + col];
+  if (col == r) {
+    if (grp == 0) order[elem * d + k] = label;
+    return;
   }
+  const int out = col - (col > r);
+  if (grp == 0) {
+    labels_new[elem * wn + out] = label;
+    if (wn == 1) order[elem * d + k + 1] = label;
+  }
+  const double g = gram[(elem * w + r) * (long long)w + col];
+  const float coef = (float)(g * sqrt((double)var[elem * w + col] /
+                                      (double)var[elem * w + r]));
   x += elem * m * w;
-  x_new += elem * m * w;
+  x_new += elem * m * wn;
   const long long s0 = (long long)grp * rows_per_block;
   const long long e = s0 + rows_per_block;
   const long long s1 = e < m ? e : m;
 #pragma unroll 8
   for (long long s = s0; s < s1; ++s) {
     const float xv = __ldg(x + s * w + col);
-    x_new[s * w + col] =
-        upd ? __fsub_rn(xv, __fmul_rn(__ldg(x + s * w + r), coef)) : xv;
+    x_new[s * wn + out] = __fsub_rn(xv, __fmul_rn(__ldg(x + s * w + r), coef));
   }
 }
 
@@ -540,16 +553,20 @@ extern "C" int step_standardize(const float* x, float* x_std, float* mu,
   return (int)cudaGetLastError();
 }
 
-// The residual update of x (batch, m, w) on the root (batch,) int64, from
-// the step's gram (batch, w, w) float64 and var (batch, w) float32; active
-// and active_new are (batch, w) bool.
+// The compacting residual update of x (batch, m, w), w >= 2, on the root
+// (batch,) int64, from the step's gram (batch, w, w) float64 and var
+// (batch, w) float32; labels (batch, w) and labels_new (batch, w - 1)
+// int64, x_new (batch, m, w - 1) float32; the labels of step k written into
+// order (batch, d) int64.
 extern "C" int step_residualize(const float* x, const long long* root,
-                                const unsigned char* active,
                                 const double* gram, const float* var,
-                                float* x_new, unsigned char* active_new,
-                                long long m, int w, int rows_per_block,
-                                int batch, cudaStream_t stream) {
-  if (m < 1 || w < 1 || rows_per_block < 1 || batch < 1 || batch > 65535) {
+                                const long long* labels, float* x_new,
+                                long long* labels_new, long long* order,
+                                long long m, int w, int d, int k,
+                                int rows_per_block, int batch,
+                                cudaStream_t stream) {
+  if (m < 1 || w < 2 || d < w || k < 0 || k + w > d || rows_per_block < 1 ||
+      batch < 1 || batch > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const int col_tiles = (w + kColThreads - 1) / kColThreads;
@@ -557,7 +574,7 @@ extern "C" int step_residualize(const float* x, const long long* root,
   if (groups * col_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(groups * col_tiles), (unsigned)batch);
   residualize_kernel<<<grid, kColThreads, 0, stream>>>(
-      x, root, active, gram, var, x_new, active_new, m, w, col_tiles,
-      rows_per_block);
+      x, root, gram, var, labels, x_new, labels_new, order, m, w, d, k,
+      col_tiles, rows_per_block);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """CUDA kernels for the ordering step's column passes.
 
-One DirectLiNGAM ordering step (:func:`repro_torch.core.ordering.ordering_step`)
+One DirectLiNGAM ordering step (:mod:`repro_torch.core.ordering`)
 standardizes the working buffer, forms its correlation and column moments,
 and regresses the other columns on the chosen root. Composed from PyTorch
 ops that is ~70 launches and ~90 passes over the buffer's bytes a step
@@ -14,9 +14,11 @@ ops that is ~70 launches and ~90 passes over the buffer's bytes a step
     moments E log cosh x_std and E x_std exp(-x_std^2 / 2) (float64 sums
     of B1's integrand), and C = x_std^T x_std / m, its sums in float64 on
     the FP64 tensor cores, rounded to float32;
-  * :func:`residualize` -- ``x_j - coef_j x_root`` on the active non-root
-    columns, the root's covariances taken from the step's float64 Gram
-    sums.
+  * :func:`residualize` -- ``x_j - coef_j x_root`` on every column but the
+    root, the root's covariances taken from the step's float64 Gram sums,
+    written into a buffer one column narrower (the root's column left
+    out), with the columns' labels and the root's place in the order: the
+    next step runs at the active width.
 
 The kernels replace no Pallas kernel: the JAX step is plain ``jnp``. They
 are bound by bytes, about six passes over the buffer a step (four reads,
@@ -25,14 +27,15 @@ source's header says what the design does about each.
 Every sum runs over the samples in an order fixed by m alone (the splits
 of :func:`split_plan`), never by the width, the column's position, the
 batch or the tile, so a column's statistics, moments and C entries are the
-same bits in every layout: the staged ordering keeps the masked scan's
-order, and a batch element the single fit's.
+same bits in every layout: the ordering compacted at every step keeps the
+masked scan's order, and a batch element the single fit's.
 
 Both functions take a leading batch axis, x (b, m, w), and raise on a
 tensor off the card: the plain versions are the composed functions of
-:mod:`repro_torch.core.ordering` (``step_standardize``, ``residualize``)
-and :func:`repro_torch.core.measures.nonlinear_moments`, which
-``LocalReducer`` takes for a CPU tensor.
+:mod:`repro_torch.core.ordering` (``step_standardize``,
+``compact_residualize``) and
+:func:`repro_torch.core.measures.nonlinear_moments`, which the ordering
+takes for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -78,9 +81,9 @@ def _lib():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.step_residualize.restype = ctypes.c_int
-    lib.step_residualize.argtypes = [ctypes.c_void_p] * 7 + [
+    lib.step_residualize.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return lib
 
@@ -140,27 +143,30 @@ def standardize(x):
     return x_std, c, mu, var, (cm1, cm2), gram
 
 
-def residualize(x, active, root, gram, var):
-    """The residual update on the card: every active column but ``root``
-    regressed on ``root``'s column of ``x``, coefficient
-    ``gram[root, j] * sqrt(var[j] / var[root])``.
+def residualize(x, root, gram, var, labels, order, k):
+    """The residual update on the card, compacting the buffer: every
+    column but ``root`` regressed on ``root``'s column of ``x``,
+    coefficient ``gram[root, j] * sqrt(var[j] / var[root])``, written at
+    column ``j - (j > root)`` of a buffer one column narrower.
 
     Args:
-      x:      (m, w) float32 working data, or (b, m, w).
-      active: (w,) or (b, w) bool.
-      root:   0-d or (b,) int64 device tensor.
+      x:      (m, w) float32 working data, or (b, m, w); w >= 2.
+      root:   0-d or (b,) int64 device tensor, an index into the w columns.
       gram, var: the step's :func:`standardize` results for ``x``.
+      labels: (w,) or (b, w) int64, each column's original index.
+      order:  (d,) or (b, d) int64, the order being built: the launch
+              writes ``labels[root]`` at position ``k`` and, when w = 2,
+              the surviving label at ``k + 1``.
     Returns:
-      (x_new, active_new): a new buffer, and the mask without ``root``.
+      (x_new, labels_new): (..., m, w - 1) and (..., w - 1), the root's
+      column and label left out, the others in their order.
     """
     global residualize_launches
     b = _check(x)
     lead = x.shape[:-2]
     m, w = x.shape[-2:]
-    if (active.dtype != torch.bool or tuple(active.shape) != (*lead, w)
-            or active.device != x.device):
-        raise ValueError(f"active must be bool {(*lead, w)}, got "
-                         f"{active.dtype} {tuple(active.shape)}")
+    if w < 2:
+        raise ValueError(f"the residual update needs w >= 2, got {w}")
     if (root.dtype != torch.int64 or tuple(root.shape) != tuple(lead)
             or root.device != x.device):
         raise ValueError(f"root must be int64 {tuple(lead)}, got "
@@ -170,17 +176,25 @@ def residualize(x, active, root, gram, var):
             or not (gram.is_contiguous() and var.is_contiguous())
             or gram.device != x.device or var.device != x.device):
         raise ValueError("gram and var must be standardize's results for x")
-    active = active.contiguous()
+    d = order.shape[-1]
+    if (labels.dtype != torch.int64 or tuple(labels.shape) != (*lead, w)
+            or not labels.is_contiguous() or labels.device != x.device
+            or order.dtype != torch.int64 or tuple(order.shape) != (*lead, d)
+            or not order.is_contiguous() or order.device != x.device
+            or not 0 <= k <= d - w):
+        raise ValueError(f"labels must be int64 {(*lead, w)} and order int64 "
+                         f"{(*lead, d)} with room for step {k}")
     root = root.contiguous()
-    x_new = torch.empty_like(x)
-    active_new = torch.empty_like(active)
+    x_new = torch.empty((*lead, m, w - 1), device=x.device)
+    labels_new = torch.empty((*lead, w - 1), dtype=torch.int64,
+                             device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().step_residualize(
-            x.data_ptr(), root.data_ptr(), active.data_ptr(),
-            gram.data_ptr(), var.data_ptr(), x_new.data_ptr(),
-            active_new.data_ptr(), m, w, RESID_ROWS, b,
+            x.data_ptr(), root.data_ptr(), gram.data_ptr(), var.data_ptr(),
+            labels.data_ptr(), x_new.data_ptr(), labels_new.data_ptr(),
+            order.data_ptr(), m, w, d, k, RESID_ROWS, b,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"step_residualize: CUDA error {err}")
     residualize_launches += 1
-    return x_new, active_new
+    return x_new, labels_new

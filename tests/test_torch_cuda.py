@@ -27,7 +27,9 @@ port's spans on the profiler's clock: a traced fit's exported starts and
 durations within 1 ms of their mirrored ranges. The ordering step's
 column-pass kernels against the composed passes (tolerances on each
 test), bit-identical across buffer widths and batch sizes, and the staged
-order equal to the masked one through them.
+order equal to the masked one through them; the ordering compacted at
+every step against the masked scan at full width, bit for bit, and its
+``order.pair_terms`` count.
 """
 
 import os
@@ -288,9 +290,10 @@ def test_cuda_bootstrap_vmap_equals_loop(cuda_device, compaction):
               config=api.FitConfig(compaction=compaction))
     before = pairwise_stats.launches
     res_v = bootstrap.bootstrap_lingam(gt.data, strategy="vmap", **kw)
-    assert pairwise_stats.launches == before + 6  # one per ordering step
+    # one per ordering step; the last column needs none
+    assert pairwise_stats.launches == before + 5
     res_l = bootstrap.bootstrap_lingam(gt.data, strategy="loop", **kw)
-    assert pairwise_stats.launches == before + 6 + 6 * 6
+    assert pairwise_stats.launches == before + 5 + 6 * 5
     np.testing.assert_array_equal(res_v.edge_prob, res_l.edge_prob)
     np.testing.assert_allclose(res_v.coef_mean, res_l.coef_mean, atol=1e-5)
     np.testing.assert_allclose(res_v.coef_std, res_l.coef_std, atol=1e-5)
@@ -414,11 +417,11 @@ def test_cuda_bootstrap_auto_models_the_ports_memory(cuda_device):
     kw = dict(n_sampling=3, threshold=0.1, seed=0)
     before = pairwise_stats.launches
     bootstrap.bootstrap_lingam(gt.data, max_vmap_bytes=need, **kw)
-    assert pairwise_stats.launches == before + 5  # vmap: one per step
+    assert pairwise_stats.launches == before + 4  # vmap: one per step
     bootstrap.bootstrap_lingam(gt.data, max_vmap_bytes=need - 1, **kw)
-    assert pairwise_stats.launches == before + 5 + 3 * 5  # the loop
+    assert pairwise_stats.launches == before + 4 + 3 * 4  # the loop
     bootstrap.bootstrap_lingam(gt.data, **kw)  # the card's free memory
-    assert pairwise_stats.launches == before + 5 + 15 + 5
+    assert pairwise_stats.launches == before + 4 + 12 + 4
 
 
 @pytest.mark.gpu
@@ -432,7 +435,7 @@ def test_cuda_engine_round_trip(cuda_device):
             for s in range(3)]
     before = pairwise_stats.launches
     eng.run(reqs)
-    assert pairwise_stats.launches == before + 7  # one batched fit
+    assert pairwise_stats.launches == before + 6  # one batched fit
     for r in reqs:
         one = api.fit_fn(torch.as_tensor(np.ascontiguousarray(r.data),
                                          device=cuda_device),
@@ -455,10 +458,11 @@ def test_cuda_engine_round_trip(cuda_device):
             out = eng.post_chunk(sid, x[k * chunk:(k + 1) * chunk])
             if out:
                 flushes.append((len(out), pairwise_stats.rows_launches - b2))
-    # One B2 launch per ordering step for each batched refit: a flush
-    # whose windows differ in length (one has slid, one has not) holds two.
-    assert flushes and all(n % d == 0 for _, n in flushes)
-    assert (2, d) in flushes
+    # One B2 launch per ordering step (d - 1: the last column needs none)
+    # for each batched refit: a flush whose windows differ in length (one
+    # has slid, one has not) holds two.
+    assert flushes and all(n % (d - 1) == 0 for _, n in flushes)
+    assert (2, d - 1) in flushes
     alerts = eng.poll_alerts()
     assert br.variable in {a.variable for a in alerts
                            if a.sid == sids[0]}
@@ -519,12 +523,12 @@ def test_cuda_svgd_matches_cpu(cuda_device):
 @pytest.mark.gpu
 def test_cuda_speedup_row_orders_agree(cuda_device):
     """One shape of the speed-up grid on the card: one B1 launch per
-    ordering step, orders equal to the sequential loop's or parting only
-    at a tie (the row raises otherwise)."""
+    ordering step (d - 1 steps), orders equal to the sequential loop's or
+    parting only at a tie (the row raises otherwise)."""
     from benchmarks import torch_speedup
 
     row = torch_speedup.shape_row(1000, 8, cuda_device, reps=1)
-    assert row["b1_launches_per_ordering"] == 8
+    assert row["b1_launches_per_ordering"] == 7
     assert row["kernel_ordering_s"] > 0.0 and row["speedup"] > 0.0
 
 
@@ -616,7 +620,7 @@ def test_cuda_spans_lie_on_the_profilers_clock(cuda_device):
                                         prof.profiler.kineto_results.events())
     assert n == len(doc["traceEvents"]) > 16
     assert start_gap < 1e6 and dur_gap < 1e6, (start_gap, dur_gap)
-    assert len(moments) == 16
+    assert len(moments) == 15  # a step per width 16 .. 2
     assert all(s.attrs["tile"] in pairwise_stats.TILES for s in moments)
 
 
@@ -677,13 +681,14 @@ def test_cuda_step_standardize_matches_composed(cuda_device, b, m, w):
 @pytest.mark.parametrize("b,m,w", STEP_SHAPES)
 @pytest.mark.parametrize("where", ["first", "last", "padded"])
 def test_cuda_step_residualize_matches_composed(cuda_device, b, m, w, where):
-    """The kernels' residual update against the composed one: the root at
-    the first column, the last real one, or a zero padding column that
-    starts inactive (as the staged ordering's padding), with two more
-    columns inactive. Updated columns within 2e-5 relative of the
-    buffer's scale (the coefficient from the float64 Gram means against
-    the composed float32 covariance); the root's, inactive and padding
-    columns copied bit for bit; the mask the composed one."""
+    """The kernels' compacting residual update against the composed one
+    (``ordering.compact_residualize``): the root at the first column, the
+    last real one, or a zero padding column, with two padding columns.
+    Updated columns within 2e-5 relative of the buffer's scale (the
+    coefficient from the float64 Gram means against the composed float32
+    covariance), in the same places; the surviving labels, and the root's
+    label at its position of the order, the composed ones; the padding
+    columns left zero."""
     from repro_torch.core import ordering
     from repro_torch.kernels import step_passes
 
@@ -691,25 +696,30 @@ def test_cuda_step_residualize_matches_composed(cuda_device, b, m, w, where):
     lead = x.shape[:-2]
     x = torch.nn.functional.pad(x, (0, 2))  # two padding columns
     width = w + 2
-    active = torch.arange(width, device=cuda_device) < w
-    active = active & (torch.arange(width, device=cuda_device) % 5 != 3)
-    active = active.expand(*lead, width)
+    labels = (3 * torch.arange(width, device=cuda_device) + 1).expand(
+        *lead, width).contiguous()
     col = {"first": 0, "last": w - 1, "padded": w + 1}[where]
     root = torch.full(lead, col, dtype=torch.int64, device=cuda_device)
     st = ordering.LocalReducer().standardize(x)
+    order = torch.full((*lead, width + 1), -1, dtype=torch.int64,
+                       device=cuda_device)
     before = step_passes.residualize_launches
-    got, got_active = step_passes.residualize(x, active, root, st.gram,
-                                              st.var)
+    got, got_labels = step_passes.residualize(x, root, st.gram, st.var,
+                                              labels, order, 1)
     torch.cuda.synchronize()
     assert step_passes.residualize_launches == before + 1
     mu, var = ordering.step_standardize(x, ordering.LocalReducer())[2:]
-    want, want_active = ordering.residualize(x, active, root, mu, var,
-                                             ordering.LocalReducer())
-    assert torch.equal(got_active, want_active)
+    want_order = torch.full_like(order, -1)
+    want, want_labels = ordering.compact_residualize(
+        x, root, mu, var, labels, want_order, 1, ordering.LocalReducer())
+    assert got.shape == (*lead, m, width - 1)
+    assert torch.equal(got_labels, want_labels)
+    assert torch.equal(order, want_order)
+    assert (order[..., 1] == 3 * col + 1).all()
     scale = x.abs().amax()
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5 * float(scale))
-    kept = ~want_active[..., None, :].expand_as(x)
-    assert torch.equal(got[kept], x[kept])
+    pad = [j - (j > col) for j in (w, w + 1) if j != col]
+    assert not got[..., pad].any()
 
 
 @pytest.mark.gpu
@@ -748,11 +758,187 @@ def test_cuda_step_passes_same_bits_across_widths_and_batches(cuda_device):
         assert torch.equal(a, b)
 
 
+def _masked_walk_at_full_width(x):
+    """The masked scan as the ordering ran it before the buffer was
+    compacted at every step, from the step kernels at full width: each
+    step standardizes all d columns, launches B1 at width d, scores the
+    active columns, and updates the active non-root columns in place (the
+    compacting update, scattered back). Yields, each step, the full
+    width's statistics, moments and mask, and returns the order."""
+    from repro_torch.core import ordering
+    from repro_torch.kernels import step_passes
+
+    lead, d = x.shape[:-2], x.shape[-1]
+    active = torch.ones((*lead, d), dtype=torch.bool, device=x.device)
+    labels = torch.arange(d, device=x.device).expand(*lead, d).contiguous()
+    order = []
+    for _ in range(d):
+        st = step_passes.standardize(x)
+        m1, m2 = ops.pairwise_moments(st[0], st[1])
+        k_list = ordering.step_scores(*st[4], m1, m2, active)
+        root = torch.argmax(k_list, dim=-1)
+        yield st, (m1, m2), active
+        order.append(root)
+        if d > 1:
+            upd, _ = step_passes.residualize(
+                x, root, st[5], st[3], labels,
+                torch.empty_like(labels), 0)
+            keep = ordering.survivors(root, d)
+            idx = keep[..., None, :].expand(*x.shape[:-1], d - 1)
+            live = torch.gather(active, -1, keep)[..., None, :]
+            x = x.scatter(-1, idx, torch.where(
+                live, upd, torch.gather(x, -1, idx)))
+        active = active.scatter(-1, root[..., None], False)
+    return torch.stack(order, dim=-1)
+
+
+def _compacted_against_masked(x):
+    """Walk the masked scan at full width and the compacted loop's steps
+    side by side: at every step the compacted buffer's column statistics,
+    column moments, C and B1's moments are the full width's entries of
+    the live columns, bit for bit. Returns (the masked walk's order, the
+    order ``masked_order_impl`` gives on the card)."""
+    from repro_torch.core import ordering
+    from repro_torch.kernels import step_passes
+
+    lead, d = x.shape[:-2], x.shape[-1]
+    labels = torch.arange(d, device=x.device).expand(*lead, d).contiguous()
+    order = torch.empty_like(labels)
+    xc = x
+    walk = _masked_walk_at_full_width(x)
+    k = 0
+    while True:
+        try:
+            st, (m1, m2), active = next(walk)
+        except StopIteration as done:
+            masked = done.value
+            break
+        w = d - k
+        if w == 1:
+            continue
+        cols = labels  # the live columns, ascending
+        stc = step_passes.standardize(xc)
+        c1, c2 = ops.pairwise_moments(stc[0], stc[1])
+        assert torch.equal(torch.gather(active, -1, cols),
+                           torch.ones_like(cols, dtype=torch.bool))
+
+        def live(t):  # (..., d) -> (..., w)
+            return torch.gather(t, -1, cols)
+
+        def live2(t):  # (..., d, d) -> (..., w, w)
+            rows = torch.gather(t, -2, cols[..., :, None].expand(
+                *lead, w, d))
+            return torch.gather(rows, -1, cols[..., None, :].expand(
+                *lead, w, w))
+
+        for full, narrow in ((st[2], stc[2]), (st[3], stc[3]),
+                             (st[4][0], stc[4][0]), (st[4][1], stc[4][1])):
+            assert torch.equal(live(full), narrow)
+        for full, narrow in ((st[1], stc[1]), (st[5], stc[5]), (m1, c1),
+                             (m2, c2)):
+            off = ~torch.eye(w, dtype=torch.bool, device=x.device)
+            assert torch.equal(live2(full)[..., off], narrow[..., off])
+        k_list = ordering.step_scores(*stc[4], c1, c2, torch.ones_like(
+            cols, dtype=torch.bool))
+        root = torch.argmax(k_list, dim=-1)
+        xc, labels = step_passes.residualize(xc, root, stc[5], stc[3],
+                                             labels, order, k)
+        k += 1
+    assert torch.equal(order, masked)
+    return masked, ordering.masked_order_impl(x, ordering.LocalReducer())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(4096, 2), (4096, 3), (4096, 5), (4096, 8),
+                                 (4096, 9), (4096, 33), (8192, 964)])
+def test_cuda_compacted_order_equals_full_width_masked_scan(cuda_device, m,
+                                                            d):
+    """The ordering compacted at every step gives the masked scan's order
+    at full width bit for bit, widths 2-7 included, and at each step the
+    live columns' statistics, moments and C are the full width's. The
+    facade's loop makes d - 1 steps of one standardize and one residualize
+    call and one B1 launch each."""
+    from repro_torch.core import ordering
+    from repro_torch.kernels import step_passes
+
+    gt = simulate_lingam(m=m, d=d, seed=100 + d)
+    x = torch.as_tensor(np.ascontiguousarray(gt.data, np.float32),
+                        device=cuda_device)
+    if d == 964:  # a walk side by side at 964 takes minutes: orders only
+        masked = _masked_walk_at_full_width(x)
+        try:
+            while True:
+                next(masked)
+        except StopIteration as done:
+            want = done.value
+    else:
+        want, _ = _compacted_against_masked(x)
+    before = (step_passes.launches, step_passes.residualize_launches,
+              pairwise_stats.launches)
+    got = ordering.masked_order_impl(x, ordering.LocalReducer())
+    assert (step_passes.launches, step_passes.residualize_launches,
+            pairwise_stats.launches) == (before[0] + d - 1,
+                                         before[1] + d - 1,
+                                         before[2] + d - 1)
+    assert torch.equal(got, want)
+    assert sorted(got.tolist()) == list(range(d))
+
+
+@pytest.mark.gpu
+def test_cuda_compacted_batch_equals_full_width_masked_scan(cuda_device):
+    """A batch (8, 2048, 40) whose elements pick different roots at the
+    same step: the compacted loop's orders are the full-width masked
+    scan's, element by element, and each element's the single fit's."""
+    from repro_torch.core import ordering
+
+    xs = np.stack([np.ascontiguousarray(
+        simulate_lingam(m=2048, d=40, seed=s).data, np.float32)
+        for s in range(8)])
+    x = torch.as_tensor(xs, device=cuda_device)
+    masked, got = _compacted_against_masked(x)
+    assert torch.equal(got, masked)
+    assert len({tuple(o) for o in got[:, :3].tolist()}) > 1
+    for k in range(8):
+        single = ordering.masked_order_impl(x[k].contiguous(),
+                                            ordering.LocalReducer())
+        assert torch.equal(single, got[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compaction", ["none", "staged"])
+def test_cuda_pair_terms_counter_reads_the_needed_pairs(cuda_device,
+                                                        compaction):
+    """On the card both schedules compute (d + 1) d (d - 1) / 3 pair terms
+    an ordering, times the batch: the benchmark's count."""
+    from repro_torch import obs
+    from repro_torch.core import batched
+    from repro_torch.obs import metrics
+
+    d, b = 24, 3
+    xs = torch.as_tensor(np.stack([np.ascontiguousarray(
+        simulate_lingam(m=1000, d=d, seed=s).data, np.float32)
+        for s in range(b)]), device=cuda_device)
+    cfg = api.FitConfig(compaction=compaction)
+    obs.reset_all()
+    obs.enable()
+    try:
+        api.fit_fn(xs[0], cfg)
+        single = metrics.snapshot()["counters"]["order.pair_terms"]
+        batched.fit_many(xs, cfg)
+        both = metrics.snapshot()["counters"]["order.pair_terms"]
+    finally:
+        obs.disable()
+        obs.reset_all()
+    assert single == (d + 1) * d * (d - 1) // 3
+    assert both - single == b * single
+
+
 @pytest.mark.gpu
 def test_cuda_staged_order_equals_masked_with_step_kernels(cuda_device):
     """Staged and masked orderings on the card give the same order, every
     step through the kernels (one standardize and one residualize call a
-    step, ``path="kernel"`` on each ``order.standardize`` span)."""
+    step, d - 1 steps: the last column needs none; ``path="kernel"`` on
+    each ``order.standardize`` span; no ``order.compact`` gather)."""
     from repro_torch import obs
     from repro_torch.core import ordering
     from repro_torch.kernels import step_passes
@@ -763,11 +949,12 @@ def test_cuda_staged_order_equals_masked_with_step_kernels(cuda_device):
     before = (step_passes.launches, step_passes.residualize_launches)
     masked = ordering.causal_order(x)
     assert (step_passes.launches, step_passes.residualize_launches) == (
-        before[0] + 40, before[1] + 40)
+        before[0] + 39, before[1] + 39)
     obs.reset()
     obs.enable()
     try:
         staged = ordering.causal_order_compact(x, min_stage=4)
+        names = [s.name for r in obs.roots() for s in [r, *r.children]]
         paths = {s.attrs.get("path") for r in obs.roots()
                  for s in [r, *r.children] if s.name == "order.standardize"}
     finally:
@@ -775,14 +962,15 @@ def test_cuda_staged_order_equals_masked_with_step_kernels(cuda_device):
         obs.reset()
     assert torch.equal(masked, staged)
     assert paths == {"kernel"}
+    assert "order.compact" not in names
 
 
 @pytest.mark.gpu
 def test_cuda_gene_screen_fit_staged_equals_masked_at_width_964(cuda_device):
     """The gene screen's estimator (adaptive lasso, lam 0.02) at 8192 x
     964 through the facade: the staged fit gives the masked scan's order,
-    and so the same adjacency bit for bit; every one of the 964 steps
-    runs the step-pass kernels."""
+    and so the same adjacency bit for bit; each of the 963 steps (the
+    last column needs none) runs the step-pass kernels."""
     from repro_torch.core import DirectLiNGAM
     from repro_torch.data.simulate import simulate_gene_perturb
     from repro_torch.kernels import step_passes
@@ -796,7 +984,7 @@ def test_cuda_gene_screen_fit_staged_equals_masked_at_width_964(cuda_device):
             prune_method="adaptive_lasso", prune_kwargs={"lam": 0.02},
             compaction=compaction).fit(x)
         assert (step_passes.launches, step_passes.residualize_launches) == (
-            before[0] + 964, before[1] + 964)
+            before[0] + 963, before[1] + 963)
     masked, staged = fits["none"], fits["staged"]
     np.testing.assert_array_equal(staged.causal_order_, masked.causal_order_)
     np.testing.assert_array_equal(staged.adjacency_, masked.adjacency_)
@@ -816,11 +1004,20 @@ def test_cuda_step_passes_reject_what_they_cannot_take(cuda_device):
     with pytest.raises(TypeError):
         step_passes.standardize(x.T)
     st = step_passes.standardize(x)
-    active = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    labels = torch.arange(8, device=cuda_device)
+    order = torch.empty(8, dtype=torch.int64, device=cuda_device)
     root = torch.tensor(2, device=cuda_device)
-    with pytest.raises(ValueError, match="active"):
-        step_passes.residualize(x, active[:7], root, st[5], st[3])
     with pytest.raises(ValueError, match="root"):
-        step_passes.residualize(x, active, root.int(), st[5], st[3])
+        step_passes.residualize(x, root.int(), st[5], st[3], labels, order,
+                                0)
     with pytest.raises(ValueError, match="gram"):
-        step_passes.residualize(x, active, root, st[1], st[3])
+        step_passes.residualize(x, root, st[1], st[3], labels, order, 0)
+    with pytest.raises(ValueError, match="labels"):
+        step_passes.residualize(x, root, st[5], st[3], labels[:7], order, 0)
+    with pytest.raises(ValueError, match="labels"):
+        step_passes.residualize(x, root, st[5], st[3], labels, order, 1)
+    with pytest.raises(ValueError, match="w >= 2"):
+        x1 = x[:, :1].contiguous()
+        st1 = step_passes.standardize(x1)
+        step_passes.residualize(x1, root, st1[5], st1[3], labels[:1],
+                                order, 0)
