@@ -137,32 +137,20 @@ def shape_row(m, d, device, reps=3, seed=0) -> dict:
 
 
 def headline(device, reps=3) -> dict:
-    """The port alone at ``lingam-1m-100``: fit and ordering seconds with
-    compaction "none" and "staged" (equal orders)."""
+    """The port alone at ``lingam-1m-100``: fit and ordering seconds."""
     wl = WORKLOADS["lingam-1m-100"]
     gt = simulate_lingam(m=wl.m, d=wl.d, seed=0)
     x = torch.tensor(np.ascontiguousarray(gt.data), device=device)
-    orderings = {"none": lambda: ordering.causal_order(x),
-                 "staged": lambda: ordering.causal_order_compact(x)}
     row = {"workload": wl.name, "m": wl.m, "d": wl.d,
            "paper_sequential_s": PAPER_SEQUENTIAL_S,
            "paper_sequential_note": "paper Fig. 2, '7 hours on a CPU'; "
                                     "quoted, not measured"}
-    orders = {}
-    for compaction, order_fn in orderings.items():
-        row[f"fit_{compaction}_s"], _ = median_s(
-            lambda: DirectLiNGAM(compaction=compaction,
-                                 device=device).fit(gt.data), device, reps)
-        row[f"ordering_{compaction}_s"], orders[compaction] = median_s(
-            lambda: order_fn().cpu().numpy(), device, reps)
-    row["orders_equal"] = bool(np.array_equal(orders["none"],
-                                              orders["staged"]))
-    if not row["orders_equal"]:
-        raise RuntimeError("compaction 'none' and 'staged' orders differ")
-    print(f"torch_speedup,{wl.name},fit_none={row['fit_none_s']:.3f}s,"
-          f"fit_staged={row['fit_staged_s']:.3f}s,"
-          f"ordering_none={row['ordering_none_s']:.3f}s,"
-          f"ordering_staged={row['ordering_staged_s']:.3f}s,"
+    row["fit_s"], _ = median_s(
+        lambda: DirectLiNGAM(device=device).fit(gt.data), device, reps)
+    row["ordering_s"], _ = median_s(
+        lambda: ordering.causal_order(x).cpu().numpy(), device, reps)
+    print(f"torch_speedup,{wl.name},fit={row['fit_s']:.3f}s,"
+          f"ordering={row['ordering_s']:.3f}s,"
           f"paper_sequential={PAPER_SEQUENTIAL_S:.0f}s (quoted)")
     return row
 

@@ -2171,8 +2171,7 @@ def main() -> int:
         fail("the stream refit's kernel ordering disagrees with 'blocked'")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ordering.compact_order_impl(x_roll, red, frac=cfg.compaction_frac,
-                                min_stage=cfg.min_stage).cpu()
+    ordering.masked_order_impl(x_roll, red).cpu()
     order_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     api.fit_from_stats(plan.resid, plan.resid_mean, plan.resid_cov,

@@ -17,10 +17,6 @@ from .batched import (  # noqa: F401
 )
 from .bootstrap import BootstrapResult, bootstrap_lingam  # noqa: F401
 from .direct_lingam import DirectLiNGAM, fit_direct_lingam  # noqa: F401
-from .ordering import (  # noqa: F401
-    causal_order,
-    causal_order_compact,
-    ordering_scores,
-)
+from .ordering import causal_order, ordering_scores  # noqa: F401
 from .pruning import estimate_adjacency  # noqa: F401
 from .var_lingam import VarLiNGAM, fit_var_lingam  # noqa: F401

@@ -13,10 +13,11 @@ The stateful ``DirectLiNGAM`` facade sits over the types here:
 diagnostics) on ``x.device``: the CUDA kernel carries the pairwise
 moments on a card, the kernel's plain version on the CPU. The order is
 copied to the host once, by the caller that reads it. The config picks
-the execution plan, all three running the same ordering step
-(:func:`repro_torch.core.ordering.ordering_step`):
+the execution plan, all three scoring a step the same way
+(:mod:`repro_torch.core.ordering`):
 
-  * **local** (``partition=None``) -- one device;
+  * **local** (``partition=None``) -- one device, the ordering compacted
+    at every step;
   * **batched** -- :mod:`repro_torch.core.batched` runs the local plan
     over a leading axis of datasets;
   * **mesh** (``partition=Partition(...)``) -- :mod:`repro_torch.core.
@@ -118,15 +119,16 @@ class FitConfig:
     ``backend``: ``None`` (the CUDA kernel on a card, its plain version on
     the CPU), ``"cuda"``, ``"blocked"`` or ``"ref"``.
 
-    ``compaction`` selects the ordering schedule of the composed path
-    (the CPU, and the mesh plan):
-      * ``"none"``   -- the full masked scan (d identical steps).
+    ``compaction``, ``compaction_frac`` and ``min_stage`` select the mesh
+    plan's ordering schedule; only the mesh plan reads them:
+      * ``"none"``   -- the full masked scan (d identical steps,
+                        ``ordering.full_width_order_impl``).
       * ``"staged"`` -- active-set compaction every stage
                         (``ordering.compact_order_impl``): same order,
                         about half the pair work.
-    On the card the local plan's step kernels compact the buffer at every
-    step whichever is set (``ordering.active_width_order_impl``): the same
-    order again, with the pair work the ordering needs, d^3 / 3.
+    The local plan compacts its buffer at every step
+    (``ordering.masked_order_impl``): the same order again, with the
+    pair work the ordering needs, d^3 / 3.
 
     ``moment_chunk``: when set, the ordering's pairwise moments
     accumulate over (moment_chunk, d) sample slabs
@@ -269,15 +271,9 @@ def _check_device(x):
 
 
 def _order_for_config(x, config: FitConfig):
-    reducer = ordering.LocalReducer(backend=config.backend,
-                                    moment_chunk=config.moment_chunk,
-                                    tune=config.tune)
-    if config.compaction == "staged":
-        return ordering.compact_order_impl(
-            x, reducer, frac=config.compaction_frac,
-            min_stage=config.min_stage,
-        )
-    return ordering.masked_order_impl(x, reducer)
+    return ordering.masked_order_impl(x, ordering.LocalReducer(
+        backend=config.backend, moment_chunk=config.moment_chunk,
+        tune=config.tune))
 
 
 def finish_fit(x, order, config: FitConfig) -> FitResult:
@@ -304,8 +300,7 @@ def fit_impl(x, config: FitConfig) -> FitResult:
     each adjacency the one a fit of x[k] alone gives for the same order.
     """
     x = x.float()
-    with obs.span("fit.ordering", d=x.shape[-1],
-                  compaction=config.compaction):
+    with obs.span("fit.ordering", d=x.shape[-1]):
         order = _order_for_config(x, config)
     with obs.span("fit.pruning", method=config.prune_method):
         if x.dim() == 3:
@@ -370,8 +365,7 @@ def fit_impl_from_stats(x, mean, cov, config: FitConfig) -> FitResult:
     (x (b, m, d), mean (b, d), cov (b, d, d)) the ordering runs batched
     and the pruning per element, as :func:`fit_impl`."""
     cov = cov.float()
-    with obs.span("fit.ordering", d=x.shape[-1],
-                  compaction=config.compaction):
+    with obs.span("fit.ordering", d=x.shape[-1]):
         order = _order_for_config(standardize_from_stats(x, mean, cov),
                                   config)
     with obs.span("fit.pruning", method=config.prune_method):

@@ -9,8 +9,8 @@ them together on the card, the reference's ``vmap`` over
   * :func:`fit_many` -- (b, m, d) -> batched :class:`~.api.FitResult`.
     Every ordering step is one step over the whole batch: one launch of
     the moment kernel over its batch grid axis, batched float64
-    reductions, each element picking its own root (and, with
-    ``compaction="staged"``, gathering its own surviving columns). The
+    reductions, each element picking its own root and keeping its own
+    surviving columns. The
     pruning then runs per element, so it needs one fit's memory.
   * :func:`resample_indices` -- the bootstrap index matrix, drawn on the
     device from a ``torch.Generator`` seeded with ``seed``; shared by the

@@ -13,8 +13,8 @@ Two execution strategies share one index matrix drawn on the device
   * ``strategy="vmap"`` -- the batched engine
     (:func:`~repro_torch.core.batched.bootstrap_fits`): all resamples as
     one batch, one moment kernel launch per ordering step for all of
-    them. Without an explicit config or model it orders with staged
-    compaction (same order as the masked scan, about half the pair work).
+    them. Without an explicit config or model it takes the reference's
+    ``compaction="staged"`` (read by the mesh plan only).
   * ``strategy="loop"`` -- one ``fit_fn`` call per resample, in O(m * d)
     memory: the fallback for shapes whose resample stack is too large,
     and the equivalence oracle of the engine's tests.
@@ -78,8 +78,8 @@ def _resolve_config(
 
     A passed model is adopted verbatim (including its ``compaction``).
     Only when neither config nor model is given does the strategy pick
-    the ordering schedule: the batched engine defaults to staged
-    compaction; the loop keeps the full scan.
+    ``compaction``, as the reference does: "staged" for the batched
+    engine, "none" for the loop.
     """
     if config is not None:
         return config

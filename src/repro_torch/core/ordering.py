@@ -1,7 +1,7 @@
-"""Causal ordering (Algorithm 1 of the paper) on the local plan.
+"""Causal ordering (Algorithm 1 of the paper).
 
-The ordering loop is d identical masked steps over a fixed-shape (m, d)
-buffer, or over a batch of them, (b, m, d):
+Each ordering step, over (m, w) working data or a batch of them,
+(b, m, w):
 
   step(X, active):
     1. standardize active columns (ddof=0)
@@ -11,63 +11,67 @@ buffer, or over a batch of them, (b, m, d):
     5. root = argmax_{active} k_list                (ties -> lowest index)
     6. residualize: x_j <- x_j - (cov(x_j, x_root)/var(x_root)) x_root
 
-:func:`ordering_step` is the one implementation of the step; the
-:class:`LocalReducer` carries out its sample and pair reductions on one
-device, the mesh plan's ``MeshReducer`` (:mod:`repro_torch.core.sharded`)
-over a ``torch.distributed`` device mesh. The root stays a device tensor
-throughout: no step reads a value back to the host, and the order is
-copied off the device once, at the end, by the caller.
+A reducer carries out the step's sample and pair reductions: the
+:class:`LocalReducer` on one device, the mesh plan's ``MeshReducer``
+(:mod:`repro_torch.core.sharded`) over a ``torch.distributed`` device
+mesh. The root stays a device tensor throughout: no step reads a value
+back to the host, and the order is copied off the device once, at the
+end, by the caller.
+
+The local plan, on every device, runs one loop, :func:`masked_order_impl`
+(the reference's name for its local ordering): step k at width w = d - k,
+every column of the buffer active, w (w - 1) pairs in the moment kernel,
+and the residual update writes the w - 1 surviving columns (no step at
+w = 1). On a CUDA tensor the step's column passes are the hand-written
+kernels of :mod:`repro_torch.kernels.step_passes` (six launches a step:
+the column statistics, the standardization with the column moments and
+the correlation, the residual update); on a CPU tensor their plain
+versions, :func:`step_standardize` (through the reducer's
+``mean_over_samples`` and ``gram_mean``),
+:func:`repro_torch.core.measures.nonlinear_moments` and
+:func:`compact_residualize`.
+
+The mesh plan's reductions cross the shards between the passes, so it
+runs the composed passes over a buffer whose width stays a multiple of
+the pair-axis size, with one of two schedules (``FitConfig.compaction``):
+:func:`full_width_order_impl`, d steps at width d with the masked
+:func:`residualize`, or :func:`compact_order_impl`, which gathers the
+surviving columns after each stage of :func:`_stage_schedule`. On the CPU
+these two are also the composed references the tests hold the local
+loop to. :func:`order_schedule` gives the widths each plan's moment
+calls run at.
+
+With telemetry on, each step's phases are spans (``order.standardize``,
+with ``path="kernel"`` or ``path="composed"``, the kernels' column moments
+and correlation inside it; ``order.scores``; ``order.residualize``; the
+moment call between them is ``kernels.dispatch`` and ``kernels.moments``),
+each stage's gather in the staged schedule is ``order.compact``, and the
+counter ``order.pair_terms`` adds up the w (w - 1) pairs of each moment
+call over the batch.
 
 Every function here takes an optional leading batch axis: data (b, m, w),
 mask (b, w), roots (b,); without it, (m, w), (w,) and a 0-d root. The
 batch is the reference's ``vmap`` over fits written out (the bootstrap
 and many-dataset engine, :mod:`repro_torch.core.batched`): every
 reduction runs over the sample or pair axis of each element, each
-element picks its own root and, in the staged ordering, gathers its own
-surviving columns, and the moment kernel runs once per step over the
-whole batch. So element k takes the same steps as a fit of x[k] alone,
-with the same moments (the kernel's sums are bit for bit those of a
-launch on x[k]) and the same float64 reductions rounded to float32.
+element picks its own root and keeps its own surviving columns, and the
+moment kernel runs once per step over the whole batch. So element k
+takes the same steps as a fit of x[k] alone, with the same moments (the
+kernel's sums are bit for bit those of a launch on x[k]) and the same
+float64 reductions rounded to float32.
 
-On the card, :class:`LocalReducer` runs the step's column passes as the
-hand-written CUDA kernels of :mod:`repro_torch.kernels.step_passes`: one
-launch sequence for the column statistics, the standardization with the
-column moments and the correlation, one for the residual update (six
-launches in all, where the composed step made ~70). Their plain versions
-are the composed functions here, :func:`step_standardize` (through the
-reducer's ``mean_over_samples`` and ``gram_mean``),
-:func:`repro_torch.core.measures.nonlinear_moments` (``col_moments``) and
-:func:`compact_residualize`, which the local plan takes for a CPU tensor;
-the mesh plan runs the composed passes everywhere (its reductions cross
-the shards between the passes), with the masked :func:`residualize`.
-
-The kernels' residual update leaves the root's column out of the buffer
-it writes, so on the card (:meth:`LocalReducer.kernel_path`) both
-:func:`masked_order_impl` and :func:`compact_order_impl` run
-:func:`active_width_order_impl`: step k at width w = d - k, every column
-active, w (w - 1) pairs in the moment kernel, and no step at w = 1. The
-composed path keeps the schedule it is given: d steps at width d for the
-masked scan, stage widths for the staged one.
-
-With telemetry on, each step's phases are spans (``order.standardize``,
-with ``path="kernel"`` or ``path="composed"``, the kernels' column moments
-and correlation inside it; ``order.scores``; ``order.residualize``; the
-moment call between them is ``kernels.dispatch`` and ``kernels.moments``),
-each stage's gather in the staged ordering is ``order.compact``, and the
-counter ``order.pair_terms`` adds up the w (w - 1) pairs of each moment
-call over the batch.
-
-:func:`compact_order_impl` and :func:`active_width_order_impl` shrink the
-buffer to the surviving columns and return the same order as
-:func:`masked_order_impl`. That needs every per-column quantity to come
-out the same at every buffer width. Scores of equally valid roots
-(independent exogenous variables) differ only at the level of fp32
-rounding, so a reduction whose order depends on the width (torch's column
-sums, cuBLAS's product) would break ties differently in the two layouts. The reducer therefore sums over
-samples and pairs in float64 and rounds the result to float32, and the
-moment kernel's sums do not depend on the width; the step-pass kernels sum
-in an order fixed by the sample count alone, so their statistics, moments
-and correlations are the same bits at every width and batch too.
+The compacting loops return the same order as
+:func:`full_width_order_impl`.
+That needs every per-column quantity to come out the same at every
+buffer width. Scores of equally valid roots (independent exogenous
+variables) differ only at the level of fp32 rounding, so a reduction
+whose order depends on the width (torch's column sums, cuBLAS's product)
+would break ties differently in the two layouts. The reducer therefore
+sums over samples and pairs in float64 and rounds the result to float32,
+and the moment kernel's sums do not depend on the width; the step-pass
+kernels sum in an order fixed by the sample count alone, so their
+statistics, moments and correlations are the same bits at every width and
+batch too.
 """
 
 from __future__ import annotations
@@ -123,9 +127,6 @@ class LocalReducer:
         :func:`repro_torch.kernels.step_passes.residualize`); on a CPU
         tensor their plain version, :func:`step_standardize` over the two
         methods above
-      * ``kernel_path(x)`` -- whether the steps on ``x`` run the step-pass
-        kernels (a CUDA tensor), and so the ordering compacted at every
-        step
       * ``mask_rows(v)`` -- zero the rows that are sample padding
         (identity here; a mesh shard carries a zero-padded tail)
       * ``gather_rows(rows)`` -- the full moment matrices from the plan's
@@ -150,11 +151,8 @@ class LocalReducer:
         v = v.double()
         return ((v.mT @ v) / v.shape[-2]).float()
 
-    def kernel_path(self, x):
-        return x.is_cuda
-
     def standardize(self, x):
-        if self.kernel_path(x):
+        if x.is_cuda:
             return StepStats(*step_passes.standardize(x))
         if x.device.type != "cpu":
             raise ValueError(f"no step-pass kernels for {x.device}")
@@ -319,15 +317,19 @@ def _active_width_step(x, active, labels, order, k, reducer):
                                        order, k)
 
 
-def active_width_order_impl(x, reducer):
-    """The ordering compacted at every step: step k runs at width
-    w = d - k, every column of the buffer active (the mask a view of one
-    all-true tensor), and the residual update writes the w - 1 surviving
-    columns, their labels and the root's label into the order; the last
-    column needs no step. Returns the order as :func:`masked_order_impl`
-    does, the same one: every per-column quantity is the same at every
-    width. On the card the kernels' update does the bookkeeping; on the
-    CPU :func:`compact_residualize`."""
+def masked_order_impl(x, reducer, *, d=None):
+    """The local plan's ordering, compacted at every step: step k runs at
+    width w = d - k, every column of the buffer active (the mask a view
+    of one all-true tensor), and the residual update writes the w - 1
+    surviving columns, their labels and the root's label into the order;
+    the last column needs no step. Returns the order as a (d,) int64
+    tensor on ``x``'s device, or (b, d) for a batch (b, m, d): the order
+    of :func:`full_width_order_impl`, since every per-column quantity is
+    the same at every width. ``d`` is the number of real variables;
+    columns past it are left out. On the card the kernels' update does
+    the bookkeeping; on the CPU :func:`compact_residualize`."""
+    if d is not None:
+        x = x[..., :d]
     lead, d = x.shape[:-2], x.shape[-1]
     x = x.float().contiguous()
     labels = torch.arange(d, device=x.device).expand(*lead, d).contiguous()
@@ -342,17 +344,14 @@ def active_width_order_impl(x, reducer):
     return order
 
 
-def masked_order_impl(x, reducer, *, d=None):
-    """Full masked scan: d identical steps at constant width. Returns the
-    order as a (d,) int64 tensor on ``x``'s device, or (b, d) for a batch
+def full_width_order_impl(x, reducer, *, d=None):
+    """Full masked scan on the composed passes (the mesh plan's schedule
+    ``"none"``): d identical steps at constant width. Returns the order
+    as a (d,) int64 tensor on ``x``'s device, or (b, d) for a batch
     (b, m, d). ``d`` is the number of real variables; columns at index
-    >= d (mesh padding) start inactive and are never selected. Where the
-    reducer runs the step-pass kernels this is
-    :func:`active_width_order_impl`, the same order."""
+    >= d (mesh padding) start inactive and are never selected."""
     width = x.shape[-1]
     d = width if d is None else d
-    if reducer.kernel_path(x):
-        return active_width_order_impl(x, reducer)
     x = x.float().contiguous()  # sample-major rows, as the kernel reads them
     active = (torch.arange(width, device=x.device) < d).expand(
         *x.shape[:-2], width)
@@ -396,21 +395,32 @@ def _stage_schedule(d: int, frac: float = 0.25, min_stage: int = 8):
     return tuple(sched)
 
 
+def order_schedule(d: int, config=None):
+    """((width, steps), ...): the widths a fit's moment calls run at on d
+    variables, and how many steps run at each. The local plan (no
+    ``config``, or one without a ``partition``) steps once at each width
+    d .. 2; the mesh plan runs ``((d, d),)``, the masked scan, or, with
+    ``config.compaction == "staged"``, :func:`_stage_schedule`."""
+    if config is None or config.partition is None:
+        return tuple((w, 1) for w in range(d, 1, -1))
+    if config.compaction == "staged":
+        return _stage_schedule(d, config.compaction_frac, config.min_stage)
+    return ((d, d),)
+
+
 def compact_order_impl(x, reducer, *, d=None, frac=0.25, min_stage=8):
-    """Staged compaction: after each stage, gather the surviving columns
+    """Staged compaction on the composed passes (the mesh plan's schedule
+    ``"staged"``): after each stage, gather the surviving columns
     into a narrower buffer (each batch element its own). Inactive columns
     never influence active ones, so the order equals
-    :func:`masked_order_impl` exactly. The schedule depends on d alone, so
-    all elements of a batch share each width. ``d`` is the number of real
-    variables (columns past it are mesh padding); buffer widths stay
-    multiples of ``reducer.col_multiple``, the freed slots zeroed and
-    inactive. Where the reducer runs the step-pass kernels this is
-    :func:`active_width_order_impl`, which compacts at every step."""
+    :func:`full_width_order_impl` exactly. The schedule depends on d
+    alone, so all elements of a batch share each width. ``d`` is the
+    number of real variables (columns past it are mesh padding); buffer
+    widths stay multiples of ``reducer.col_multiple``, the freed slots
+    zeroed and inactive."""
     lead, width = x.shape[:-2], x.shape[-1]
     d = width if d is None else d
     schedule = _stage_schedule(d, frac, min_stage)
-    if reducer.kernel_path(x):
-        return active_width_order_impl(x, reducer)
     col_multiple = reducer.col_multiple
     x = x.float().contiguous()
     # current column -> original, per element
@@ -441,9 +451,3 @@ def compact_order_impl(x, reducer, *, d=None, frac=0.25, min_stage=8):
             width = keep_pad
     return torch.cat(parts, dim=-1)
 
-
-def causal_order_compact(x, *, backend=None, frac=0.25, min_stage=8):
-    """Staged-compaction ordering (see :func:`compact_order_impl`)."""
-    return compact_order_impl(
-        x, LocalReducer(backend=backend), frac=frac, min_stage=min_stage
-    )

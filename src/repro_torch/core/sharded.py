@@ -160,11 +160,6 @@ class MeshReducer:
         # Padded sample rows must stay exactly zero *after* centering.
         return torch.where(self.valid_rows(v.device), v, 0.0)
 
-    def kernel_path(self, x):
-        # The composed passes reduce across the shards: the masked scan and
-        # the staged schedule keep their widths.
-        return False
-
     def standardize(self, x):
         if not self.fused_standardize:
             return ordering.StepStats(*ordering.step_standardize(x, self))
@@ -222,7 +217,7 @@ def _order_sharded(x_local, d, config: FitConfig, reducer: MeshReducer):
         return ordering.compact_order_impl(
             x_local, reducer, d=d, frac=config.compaction_frac,
             min_stage=config.min_stage)
-    return ordering.masked_order_impl(x_local, reducer, d=d)
+    return ordering.full_width_order_impl(x_local, reducer, d=d)
 
 
 def _pair_row_tiles(reducer: MeshReducer, order, d: int):
@@ -403,7 +398,7 @@ def make_sharded_causal_order(
             mesh, m=m, m_local=m_local, sample_axes=sample_axes,
             pair_axis=pair_axis, backend=backend,
             fused_standardize=fused_standardize, tune=tune)
-        return ordering.masked_order_impl(x_local, reducer, d=d)
+        return ordering.full_width_order_impl(x_local, reducer, d=d)
 
     return ordered, m_pad, d_pad
 

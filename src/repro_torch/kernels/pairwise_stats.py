@@ -103,8 +103,8 @@ def split_plan(m: int, n_split: int = None):
     each split a whole number of 128-sample chunks, none of them empty;
     an explicit ``n_split`` is clamped the same way. It does not depend
     on the number of variables, so a pair's sums are bit-identical at
-    every buffer width: the staged-compaction ordering then sees the
-    same moments as the masked scan and returns the same order.
+    every buffer width: the compacting orderings then see the same
+    moments as the masked scan and return the same order.
     """
     chunks = max(1, math.ceil(m / ACCUM_CHUNK))
     if n_split is None:

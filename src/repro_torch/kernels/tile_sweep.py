@@ -5,14 +5,12 @@ Run on a CUDA card from the repository root:
 
     PYTHONPATH=src python3 -m repro_torch.kernels.tile_sweep
 
-Three paths, each a list of (width, launches) cells:
-
-  * ``lingam-1m-100 staged``: B1 at m = 1e6 over the staged compaction's
-    widths (100, 75, 56, ... 8), as many launches as the stage has steps;
-  * ``varlingam-stocks-487``: B1 at (3999, 487), 487 launches (the
-    facade's masked scan);
-  * ``stream refit``: the chunked B2 launch over a 2048-row window in
-    256-row slabs at the staged widths of 487 (the rolling refit).
+The paths and their cells are the autotuner's
+(``tune.autotune.fit_path_cells``): B1 over ``lingam-1m-100``, B1 over
+the VAR residuals of ``varlingam-stocks-487``, and the chunked B2 launch
+over the 2048-row window of the rolling refit in 256-row slabs, at the
+widths d .. 2 the local plan's ordering steps run at, a few widths a
+tuning bucket, each weighted by the launches it stands for.
 
 For every cell it times each instance of ``pairwise_stats.TILES`` (the
 autotuner's candidate plans, ``tune.autotune.candidate_plans``, passed to
@@ -35,10 +33,9 @@ import subprocess
 import numpy as np
 import torch
 
-from ..core.ordering import _stage_schedule
 from . import ops, pairwise_stats
 from .pairwise_stats import tile_for
-from .tune.autotune import candidate_plans, measure_candidates
+from .tune.autotune import candidate_plans, fit_path_cells, measure_candidates
 
 REPS = 50
 FILLS = (0, 64, 128, 256, 512, 1024, 2048, 4096)
@@ -71,34 +68,25 @@ def main() -> int:
         return x, ops.correlation(x).contiguous()
 
     paths = {}
-    x1, c1 = standardized(1_000_000, 100)
-    cells = []
-    for width, steps in _stage_schedule(100):
-        xs = x1[:, :width].contiguous()
-        cs = c1[:width, :width].contiguous()
-        n_z = pairwise_stats.slab_plan(xs.shape[0]).n_z
-        cells.append((width, steps, n_z, _sweep_cell(
-            lambda plan, xs=xs, cs=cs: ops.pairwise_moments(xs, cs,
-                                                            plan=plan),
-            "pairwise_moments", tuple(xs.shape))))
-    paths["lingam-1m-100 staged"] = cells
-    del x1, c1
-    xv, cv = standardized(3999, 487)
-    n_z = pairwise_stats.slab_plan(3999).n_z
-    paths["varlingam-stocks-487"] = [(487, 487, n_z, _sweep_cell(
-        lambda plan: ops.pairwise_moments(xv, cv, plan=plan),
-        "pairwise_moments", tuple(xv.shape)))]
-    xw, cw = standardized(2048, 487)
-    cells = []
-    for width, steps in _stage_schedule(487):
-        xs = xw[:, :width].contiguous()
-        cs = cw[:width, :width].contiguous()
-        n_z = pairwise_stats.slab_plan(2048, 256).n_z
-        cells.append((width, steps, n_z, _sweep_cell(
-            lambda plan, xs=xs, cs=cs: ops.pairwise_moment_sums_chunked(
-                xs, cs, chunk=256, plan=plan),
-            "pairwise_moment_sums_chunked", tuple(xs.shape), chunk=256)))
-    paths["stream refit"] = cells
+    for name, cells in fit_path_cells().items():
+        op, (m, d), chunk, _ = cells[0]  # a path's cells: one op, m, chunk
+        x, c = standardized(m, d)  # the widest cell first
+        n_z = pairwise_stats.slab_plan(m, chunk).n_z
+        swept = []
+        for _, (_, width), _, steps in cells:
+            xs = x[:, :width].contiguous()
+            cs = c[:width, :width].contiguous()
+            if chunk is None:
+                def call(plan, xs=xs, cs=cs):
+                    return ops.pairwise_moments(xs, cs, plan=plan)
+            else:
+                def call(plan, xs=xs, cs=cs):
+                    return ops.pairwise_moment_sums_chunked(
+                        xs, cs, chunk=chunk, plan=plan)
+            swept.append((width, steps, n_z, _sweep_cell(
+                call, op, tuple(xs.shape), chunk=chunk)))
+        paths[name] = swept
+        del x, c
 
     over_paths = dict.fromkeys(FILLS, 0.0)
     for name, cells in paths.items():

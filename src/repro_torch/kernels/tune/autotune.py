@@ -20,10 +20,10 @@ records the fastest in the tuning table under its bucketed key, for
 
 on a card writes the committed defaults (``--out`` defaults to
 ``default_plans.json``): for each bucket that the single-launch fit paths
-reach (``lingam-1m-100`` at its staged widths, ``varlingam-stocks-487``,
-the rolling refit of ``varlingam-stream-487`` at its staged widths), the
-pair-block edge with the least time over the bucket's widths, each
-weighted by its launches per fit.
+reach (``lingam-1m-100``, ``varlingam-stocks-487`` and the rolling refit
+of ``varlingam-stream-487``, each at the widths d .. 2, a few of them a
+bucket: :func:`fit_path_cells`), the pair-block edge with the least time
+over the bucket's widths, each weighted by the launches it stands for.
 """
 
 from __future__ import annotations
@@ -310,23 +310,46 @@ def warmup_plans(
     return out
 
 
-def _fit_path_cells():
-    """(op, (m, d), chunk, launches per fit) of every launch width of the
-    fit paths: ``lingam-1m-100`` staged, ``varlingam-stocks-487``, and the
-    rolling refit of ``varlingam-stream-487`` staged."""
+WIDTHS_PER_BUCKET = 4
+
+
+def fit_path_cells():
+    """{path: [(op, (m, w), chunk, launches per fit), ...]}: the launches
+    of the three fit paths at the widths the local plan's ordering steps
+    run at (``core.ordering.order_schedule``): B1 over ``lingam-1m-100``,
+    B1 over the VAR residuals of ``varlingam-stocks-487`` (m - 1 rows),
+    and B2 over the window of the rolling refit of
+    ``varlingam-stream-487`` in its slabs. The widths of one table bucket
+    (``cache.shape_bucket``) are split into up to ``WIDTHS_PER_BUCKET``
+    runs of neighbours; each run is one cell, at its middle width, that
+    stands for the run's launches. Widest first."""
     from repro_torch.configs.lingam_workloads import (STREAM_WORKLOADS,
                                                       WORKLOADS)
-    from repro_torch.core.ordering import _stage_schedule
+    from repro_torch.core.ordering import order_schedule
 
     lm, sv = WORKLOADS["lingam-1m-100"], WORKLOADS["varlingam-stocks-487"]
     sw = STREAM_WORKLOADS["varlingam-stream-487"]
-    cells = [("pairwise_moments", (lm.m, w), None, n)
-             for w, n in _stage_schedule(lm.d)]
-    cells.append(("pairwise_moments", (sv.m - 1, sv.d), None, sv.d))
-    cells += [("pairwise_moment_sums_chunked",
-               (sw.chunk * sw.window_chunks, w), sw.chunk, n)
-              for w, n in _stage_schedule(sw.d)]
-    return cells
+
+    def path(op, m, d, chunk=None):
+        buckets: Dict[str, List[Tuple[int, int]]] = {}
+        for w, n in order_schedule(d):
+            buckets.setdefault(tune_cache.shape_bucket(op, (m, w)),
+                               []).append((w, n))
+        cells = []
+        for steps in buckets.values():
+            k = min(WIDTHS_PER_BUCKET, len(steps))
+            for i in range(k):
+                run = steps[i * len(steps) // k:(i + 1) * len(steps) // k]
+                cells.append((op, (m, run[len(run) // 2][0]), chunk,
+                              sum(n for _, n in run)))
+        return cells
+
+    return {
+        "lingam-1m-100": path("pairwise_moments", lm.m, lm.d),
+        "varlingam-stocks-487": path("pairwise_moments", sv.m - 1, sv.d),
+        "stream refit": path("pairwise_moment_sums_chunked",
+                             sw.chunk * sw.window_chunks, sw.d, sw.chunk),
+    }
 
 
 def main(argv=None) -> int:
@@ -342,7 +365,8 @@ def main(argv=None) -> int:
     print(card, flush=True)
     buckets: Dict[str, Dict[int, float]] = {}  # key -> {tile: s per fit}
     launches: Dict[str, int] = {}
-    for op, shape, chunk, n in _fit_path_cells():
+    for op, shape, chunk, n in (cell for cells in fit_path_cells().values()
+                                for cell in cells):
         key = tune_cache.plan_key(registry.device_kind(), op, "cuda",
                                   "float32", tune_cache.shape_bucket(op, shape))
         ms = measure_candidates(_bench_fn(op, shape, chunk, 1, "cuda"),

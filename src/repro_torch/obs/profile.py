@@ -260,8 +260,8 @@ def utilization(
 # ---------------------------------------------------------------------------
 
 #: Ops whose shape is (m, d), or (b, m, d) for a batch of fits, and whose
-#: config picks the ordering schedule: their modelled work is the
-#: ordering's pairwise moments.
+#: config picks the plan: their modelled work is the ordering's pairwise
+#: moments.
 FIT_OPS = ("core.fit", "sharded.fit", "report.ordering", "batched.fit_many",
            "batched.fit_many_from_stats", "batched.bootstrap_fits")
 
@@ -293,8 +293,10 @@ def analytic_cost(op: str, shape, *, config=None, batch: int = 1,
         tile; ``fused_moment_sums`` (tile, d, m): kernel B3, X read in
         ``itemsize`` bytes a value plus its (d,) mean and scale;
       * the fit ops of ``FIT_OPS`` at (m, d), or (b, m, d) for a batch,
-        with a fit ``config``: the ordering's moment work over its
-        schedule (d steps at width d, or the staged widths);
+        with a fit ``config``: the ordering's moment work at the widths
+        its steps run at (``core.ordering.order_schedule``: one step at
+        each width d .. 2 on the local plan, the configured schedule on
+        the mesh plan);
       * ``report.pruning`` (m, d): the OLS pruning's fp32 flops (the
         covariance, 2 m d^2, and d masked solves, 2/3 d^3 each);
       * ``report.solve`` (m, d): the residual diagnostics' fp32 flops.
@@ -321,10 +323,12 @@ def analytic_cost(op: str, shape, *, config=None, batch: int = 1,
         flops, nbytes = _moment_cost(
             tile, d, m, batch=batch, x_bytes=itemsize * m * d + 4.0 * 2 * d)
     elif op in FIT_OPS and len(dims) in (2, 3) and config is not None:
+        from repro_torch.core.ordering import order_schedule
+
         m, d = dims[-2:]
         batch *= dims[0] if len(dims) == 3 else 1
         flops = nbytes = 0.0
-        for width, n_steps in _schedule(d, config):
+        for width, n_steps in order_schedule(d, config):
             f, b = _moment_cost(width, width, m, batch=batch)
             flops += n_steps * f
             nbytes += n_steps * b
@@ -346,15 +350,6 @@ def analytic_cost(op: str, shape, *, config=None, batch: int = 1,
         "intensity": flops / max(nbytes, 1.0),
         "unit": unit,
     }
-
-
-def _schedule(d: int, config):
-    """[(width, steps)] of the ordering ``config`` runs on d variables."""
-    if getattr(config, "compaction", "none") == "staged":
-        from repro_torch.core.ordering import _stage_schedule
-
-        return _stage_schedule(d, config.compaction_frac, config.min_stage)
-    return ((d, d),)
 
 
 # ---------------------------------------------------------------------------

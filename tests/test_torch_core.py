@@ -153,7 +153,8 @@ def test_staged_compaction_equals_masked_scan(seed):
     gt = simulate_lingam(m=1500, d=13, seed=seed)
     x = torch.from_numpy(gt.data)
     masked = ordering.causal_order(x).numpy()
-    staged = ordering.causal_order_compact(x, min_stage=3).numpy()
+    staged = ordering.compact_order_impl(x, ordering.LocalReducer(),
+                                         min_stage=3).numpy()
     np.testing.assert_array_equal(staged, masked)
 
 

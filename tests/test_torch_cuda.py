@@ -935,10 +935,11 @@ def test_cuda_pair_terms_counter_reads_the_needed_pairs(cuda_device,
 
 @pytest.mark.gpu
 def test_cuda_staged_order_equals_masked_with_step_kernels(cuda_device):
-    """Staged and masked orderings on the card give the same order, every
-    step through the kernels (one standardize and one residualize call a
-    step, d - 1 steps: the last column needs none; ``path="kernel"`` on
-    each ``order.standardize`` span; no ``order.compact`` gather)."""
+    """The local plan on the card gives the masked scan's order (walked
+    step by step at full width) for both compactions, every step through
+    the kernels (one standardize and one residualize call a step, d - 1
+    steps: the last column needs none; ``path="kernel"`` on each
+    ``order.standardize`` span; no ``order.compact`` gather)."""
     from repro_torch import obs
     from repro_torch.core import ordering
     from repro_torch.kernels import step_passes
@@ -946,21 +947,28 @@ def test_cuda_staged_order_equals_masked_with_step_kernels(cuda_device):
     gt = simulate_lingam(m=20_000, d=40, seed=5)
     x = torch.as_tensor(np.ascontiguousarray(gt.data, np.float32),
                         device=cuda_device)
+    masked, _ = _compacted_against_masked(x)
     before = (step_passes.launches, step_passes.residualize_launches)
-    masked = ordering.causal_order(x)
+    local = ordering.causal_order(x)
     assert (step_passes.launches, step_passes.residualize_launches) == (
         before[0] + 39, before[1] + 39)
     obs.reset()
     obs.enable()
     try:
-        staged = ordering.causal_order_compact(x, min_stage=4)
-        names = [s.name for r in obs.roots() for s in [r, *r.children]]
-        paths = {s.attrs.get("path") for r in obs.roots()
-                 for s in [r, *r.children] if s.name == "order.standardize"}
+        staged = api.fit_fn(x, api.FitConfig(compaction="staged",
+                                             min_stage=4)).order
+        spans, todo = [], list(obs.roots())
+        while todo:
+            spans.append(todo.pop())
+            todo += spans[-1].children
+        names = [s.name for s in spans]
+        paths = {s.attrs.get("path") for s in spans
+                 if s.name == "order.standardize"}
     finally:
         obs.disable()
         obs.reset()
-    assert torch.equal(masked, staged)
+    assert torch.equal(local, masked)
+    assert torch.equal(staged, masked)
     assert paths == {"kernel"}
     assert "order.compact" not in names
 

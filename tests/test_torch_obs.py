@@ -518,9 +518,9 @@ def test_fit_from_stats_records_ordering_and_pruning(batch):
         api.fit_from_stats(x, mean, cov, cfg)
     roots = obs.roots()
     assert [r.name for r in roots] == ["fit.ordering", "fit.pruning"]
-    assert roots[0].attrs == {"d": 6, "compaction": "staged"}
+    assert roots[0].attrs == {"d": 6}
     assert roots[1].attrs == {"method": "ols"}
-    assert _names_under("fit.ordering").count("kernels.moments") == 6
+    assert _names_under("fit.ordering").count("kernels.moments") == 5
 
 
 def _engine_traffic(n_sessions=2, posts=4):
@@ -619,21 +619,32 @@ def test_pruning_records_its_solve_and_sweeps(method):
 
 @pytest.mark.parametrize("compaction", ["none", "staged"])
 def test_ordering_step_phases(compaction):
-    """Each of the d steps is ``order.standardize``, ``kernels.moments``,
-    ``order.scores``, ``order.residualize`` in that order under
-    ``fit.ordering``; the staged ordering adds one ``order.compact`` per
-    stage that keeps columns."""
+    """Each step is ``order.standardize``, ``kernels.moments``,
+    ``order.scores``, ``order.residualize`` in that order: under
+    ``fit.ordering`` the local plan's d - 1 steps, whatever
+    ``compaction`` is; the mesh plan's schedule (here on the local
+    reducer) takes d steps, and the staged one adds one ``order.compact``
+    per stage that keeps columns."""
     from repro_torch.core import ordering
 
     d = 6
     cfg = api.FitConfig(compaction=compaction, min_stage=2)
+    x = _x(300, d, 7)
     obs.enable()
-    api.fit_fn(_x(300, d, 7), cfg)
+    api.fit_fn(x, cfg)
     (ordering_span,) = [s for s, _ in _all_spans()
                         if s.name == "fit.ordering"]
-    names = [c.name for c in ordering_span.children]
     step = ["order.standardize", "kernels.moments", "order.scores",
             "order.residualize"]
+    assert [c.name for c in ordering_span.children] == step * (d - 1)
+    obs.reset_all()
+    red = ordering.LocalReducer()
+    if compaction == "staged":
+        ordering.compact_order_impl(x, red, frac=cfg.compaction_frac,
+                                    min_stage=cfg.min_stage)
+    else:
+        ordering.full_width_order_impl(x, red)
+    names = [r.name for r in obs.roots()]
     assert [n for n in names if n != "order.compact"] == step * d
     stages = ordering._stage_schedule(d, cfg.compaction_frac,
                                       cfg.min_stage)
@@ -648,9 +659,10 @@ def test_ordering_step_phases(compaction):
 
 @pytest.mark.parametrize("plan", ["local", "mesh"])
 def test_cpu_ordering_steps_take_the_composed_passes(plan):
-    """On the CPU the local plan and the mesh plan (a 1 x 1 mesh in this
-    process) run the step's composed passes: every ``order.standardize``
-    span carries ``path="composed"`` and no step-pass kernel is called."""
+    """On the CPU the local plan (d - 1 steps) and the mesh plan (d steps,
+    a 1 x 1 mesh in this process) run the step's composed passes: every
+    ``order.standardize`` span carries ``path="composed"`` and no
+    step-pass kernel is called."""
     from repro_torch.kernels import step_passes
 
     d = 5
@@ -661,7 +673,7 @@ def test_cpu_ordering_steps_take_the_composed_passes(plan):
     api.fit_fn(_x(300, d, 9), api.FitConfig(partition=part))
     paths = [s.attrs.get("path") for s, _ in _all_spans()
              if s.name == "order.standardize"]
-    assert paths == ["composed"] * d
+    assert paths == ["composed"] * (d if plan == "mesh" else d - 1)
     assert (step_passes.launches,
             step_passes.residualize_launches) == before
 

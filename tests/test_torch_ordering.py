@@ -1,14 +1,15 @@
-"""The ordering compacted at every step, on the CPU.
+"""The local plan's ordering, compacted at every step, on the CPU.
 
-On the card both schedules run ``ordering.active_width_order_impl``: step
-k at width d - k, the residual update leaving the root's column and label
-out of the buffer it writes (``step_passes.residualize``). Here the same
-loop runs its plain version (``ordering.compact_residualize``), so its
-index arithmetic is checked against a plain Python list of labels, its
-order against the masked scan's, and the ``order.pair_terms`` counter
-against the pair count of each schedule: d^2 (d - 1) for the composed
-masked scan, the stage widths' sum for the staged one, (d + 1) d (d - 1)
-/ 3 for the loop compacted at every step.
+The local plan runs ``ordering.masked_order_impl`` on every device
+and for both compactions: step k at width d - k, the residual update
+leaving the root's column and label out of the buffer it writes (on the
+card ``step_passes.residualize``, here its plain version
+``ordering.compact_residualize``). So its index arithmetic is checked
+against a plain Python list of labels, its order against the mesh plan's
+composed schedules (``full_width_order_impl``, ``compact_order_impl``), and
+the ``order.pair_terms`` counter against the pair count of each schedule:
+d^2 (d - 1) for the masked scan, the stage widths' sum for the staged
+one, (d + 1) d (d - 1) / 3 for the loop compacted at every step.
 """
 
 import numpy as np
@@ -38,6 +39,12 @@ def _x(m, d, seed):
 
 def _pair_terms():
     return metrics.snapshot()["counters"].get("order.pair_terms", 0.0)
+
+
+def _span_names(spans):
+    for sp in spans:
+        yield sp.name
+        yield from _span_names(sp.children)
 
 
 def test_survivors_keep_a_list_of_labels():
@@ -85,15 +92,18 @@ def test_compact_residualize_is_the_masked_update_without_the_root(w, root):
 @pytest.mark.parametrize("d", [1, 2, 3, 5, 8, 9])
 def test_active_width_order_equals_masked(d):
     """On the CPU the loop compacted at every step gives the masked scan's
-    order, and the staged schedule's, at widths that reach 1."""
+    order, and the staged schedule's, at widths that reach 1; columns
+    past ``d`` (padding) are left out."""
     x = _x(600, d, seed=40 + d) if d > 1 else torch.randn(600, 1)
     red = ordering.LocalReducer()
-    masked = ordering.masked_order_impl(x, red)
-    every = ordering.active_width_order_impl(x, red)
+    masked = ordering.full_width_order_impl(x, red)
+    every = ordering.masked_order_impl(x, red)
     assert every.dtype == torch.int64
     assert torch.equal(every, masked)
     assert torch.equal(every, ordering.compact_order_impl(x, red,
                                                           min_stage=2))
+    padded = torch.cat([x, torch.zeros(x.shape[0], 2)], dim=-1)
+    assert torch.equal(every, ordering.masked_order_impl(padded, red, d=d))
     assert sorted(every.tolist()) == list(range(d))
 
 
@@ -102,18 +112,11 @@ def test_active_width_order_batch_elements_pick_their_own_roots():
     element's order is that of its own fit."""
     xs = torch.stack([_x(500, 7, seed=s) for s in range(4)])
     red = ordering.LocalReducer()
-    every = ordering.active_width_order_impl(xs, red)
-    singles = torch.stack([ordering.masked_order_impl(xk, red) for xk in xs])
+    every = ordering.masked_order_impl(xs, red)
+    singles = torch.stack([ordering.full_width_order_impl(xk, red)
+                           for xk in xs])
     assert torch.equal(every, singles)
     assert len({tuple(o) for o in every[:, :2].tolist()}) > 1
-
-
-def test_kernel_path_is_the_card_only():
-    """The local plan takes the compacted loop for a CUDA tensor only; on
-    the CPU it keeps the schedule it is given."""
-    red = ordering.LocalReducer()
-    assert red.kernel_path(torch.zeros(4, 3)) is False
-    assert red.kernel_path(torch.zeros(2, 4, 3)) is False
 
 
 def _staged_pairs(d, frac, min_stage):
@@ -125,20 +128,46 @@ def _staged_pairs(d, frac, min_stage):
 @pytest.mark.parametrize("batch", [None, 3])
 def test_pair_terms_counter_on_the_composed_path(compaction, batch):
     """``order.pair_terms`` adds w (w - 1) per moment call, times the
-    batch: d^2 (d - 1) for the masked scan, the stage widths' sum for the
-    staged schedule; nothing with telemetry off."""
-    d = 9
-    cfg = api.FitConfig(compaction=compaction, min_stage=3)
+    batch, on the mesh plan's composed schedules: d^2 (d - 1) for the
+    masked scan, the stage widths' sum for the staged schedule; nothing
+    with telemetry off."""
+    d, frac, min_stage = 9, 0.25, 3
     x = (_x(400, d, seed=5) if batch is None
          else torch.stack([_x(400, d, seed=s) for s in range(batch)]))
-    api.fit_impl(x, cfg)
+
+    def order():
+        red = ordering.LocalReducer()
+        if compaction == "none":
+            return ordering.full_width_order_impl(x, red)
+        return ordering.compact_order_impl(x, red, frac=frac,
+                                           min_stage=min_stage)
+
+    order()
     assert _pair_terms() == 0.0
     obs.enable()
-    api.fit_impl(x, cfg)
+    order()
     want = (d * d * (d - 1) if compaction == "none"
-            else _staged_pairs(d, cfg.compaction_frac, cfg.min_stage))
+            else _staged_pairs(d, frac, min_stage))
     assert _pair_terms() == want * (batch or 1)
     assert want > (d + 1) * d * (d - 1) // 3
+
+
+@pytest.mark.parametrize("compaction", ["none", "staged"])
+def test_local_fit_runs_the_compacted_loop(compaction):
+    """``fit_fn`` on the CPU runs the loop compacted at every step whatever
+    ``compaction`` is: the masked scan's order, sum_{w=2..d} w (w - 1)
+    pair terms, and no stage gather (``order.compact``)."""
+    d = 9
+    x = _x(500, d, seed=11)
+    obs.enable()
+    got = api.fit_fn(x, api.FitConfig(compaction=compaction, min_stage=3))
+    assert _pair_terms() == sum(w * (w - 1) for w in range(2, d + 1))
+    names = list(_span_names(obs.roots()))
+    assert names.count("order.standardize") == d - 1
+    assert "order.compact" not in names
+    obs.disable()
+    assert torch.equal(got.order, ordering.full_width_order_impl(
+        x, ordering.LocalReducer()))
 
 
 @pytest.mark.parametrize("d", [2, 9, 40])
@@ -148,6 +177,6 @@ def test_pair_terms_counter_on_the_compacted_loop(d):
     benchmark's roofline needs."""
     x = torch.randn(300, d)
     obs.enable()
-    ordering.active_width_order_impl(x, ordering.LocalReducer())
+    ordering.masked_order_impl(x, ordering.LocalReducer())
     assert _pair_terms() == (d + 1) * d * (d - 1) // 3
     assert _pair_terms() == sum(w * (w - 1) for w in range(2, d + 1))

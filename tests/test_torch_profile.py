@@ -232,13 +232,22 @@ def test_analytic_cost_counts_three_sfu_ops_a_term():
 
 
 def test_fit_cost_follows_the_schedule():
+    """The local plan's fit counts 3 m sum_{w=2..d} w^2, the widths its
+    steps launch at, whatever ``compaction`` is; the mesh plan's counts
+    d steps at width d, or its stages."""
     m, d = 1000, 20
-    none = profile.analytic_cost("core.fit", (m, d),
-                                 config=api.FitConfig())
+    local = 3 * m * sum(w * w for w in range(2, d + 1))
+    for compaction in ("none", "staged"):
+        got = profile.analytic_cost(
+            "core.fit", (m, d), config=api.FitConfig(compaction=compaction))
+        assert got["flops"] == pytest.approx(local)
+    mesh = api.Partition()
+    none = profile.analytic_cost(
+        "sharded.fit", (m, d), config=api.FitConfig(partition=mesh))
     assert none["flops"] == pytest.approx(3 * d * d * m * d)
-    staged = profile.analytic_cost(
-        "core.fit", (m, d), config=api.FitConfig(compaction="staged"))
-    assert staged["flops"] < 0.6 * none["flops"]
+    staged = profile.analytic_cost("sharded.fit", (m, d), config=api.FitConfig(
+        compaction="staged", partition=mesh))
+    assert local < staged["flops"] < 0.6 * none["flops"]
     assert profile.analytic_cost("core.fit", (m, d)) is None  # no config
 
 

@@ -471,6 +471,30 @@ def test_autotune_runs_the_fused_kernel_b3(tmp_path):
         autotune._bench_fn("fused_moment_sums", shape, None, 2, "cpu")
 
 
+def test_fit_path_cells_stand_for_every_launch():
+    """The tuner's and the tile sweep's cells: on each fit path, widest
+    first, their launches add up to the d - 1 steps of a local ordering,
+    every table bucket those steps reach has a cell, and none has more
+    than ``WIDTHS_PER_BUCKET``."""
+    from repro_torch.core.ordering import order_schedule
+
+    paths = autotune.fit_path_cells()
+    widths = {"lingam-1m-100": 100, "varlingam-stocks-487": 487,
+              "stream refit": 487}
+    assert set(paths) == set(widths)
+    for name, cells in paths.items():
+        d = widths[name]
+        op, (m, _), _, _ = cells[0]
+        ws = [w for _, (_, w), _, _ in cells]
+        assert ws == sorted(ws, reverse=True) and 2 <= ws[-1]
+        assert ws[0] <= d
+        assert sum(n for *_, n in cells) == d - 1
+        want = {cache.shape_bucket(op, (m, w)) for w, _ in order_schedule(d)}
+        got = [cache.shape_bucket(op, (m, w)) for w in ws]
+        assert set(got) == want
+        assert max(got.count(b) for b in want) <= autotune.WIDTHS_PER_BUCKET
+
+
 def test_regress_tracks_every_stem_of_the_reference():
     """The port's tracker knows the reference's stems (its seven engine
     benches) besides speedup, gene and stocks, each mapped to a bench of

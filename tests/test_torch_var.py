@@ -95,7 +95,7 @@ def test_staged_equals_masked_on_the_chunked_path(seed):
     x = torch.from_numpy(gt.data)
     for backend in (None, "blocked"):
         reducer = ordering.LocalReducer(backend=backend, moment_chunk=96)
-        masked = ordering.masked_order_impl(x, reducer).numpy()
+        masked = ordering.full_width_order_impl(x, reducer).numpy()
         staged = ordering.compact_order_impl(x, reducer, min_stage=3).numpy()
         np.testing.assert_array_equal(staged, masked)
 
