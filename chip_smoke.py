@@ -40,7 +40,12 @@ failure of which exits non-zero:
      against its byte bound and the composed plain version, the results
      within ``STEP_TOL`` of the plain version, a repeat call bit for bit,
      a narrower buffer's columns and a batch element bit-equal to the
-     wider buffer's and the single launch's, the launch counts;
+     wider buffer's and the single launch's, the launch counts; then the
+     score-and-root kernel (``step_passes.scores_root``) on B1's moments
+     of (3999, 487), (32, 3999, 487) and (65,164, 964): the composed
+     ``step_scores`` and argmax's root, the scores within 1e-12 relative,
+     a repeat and a batch element bit for bit, timed against its byte
+     bound and the composed version;
   5. mid-size fits (m = 20,000, d = 32): the kernel against the plain
      ``blocked`` backend, both on the card: on a layered DAG, step by step
      up to ties between equally valid roots; on a chain DAG, whose order
@@ -245,7 +250,10 @@ def ptxas_report(log: str):
              ("standardize_moments_kernel", "standardize_moments"),
              ("gram_kernel", "gram"),
              ("finish_kernel", "finish"),
-             ("residualize_kernel", "residualize"))
+             ("residualize_kernel", "residualize"),
+             ("score_tiles_kernel", "score_tiles"),
+             ("score_root_kernel", "score_root"),
+             ("score_fused_kernel", "score_fused"))
     report, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -423,7 +431,96 @@ def step_passes_phase(dev, cuda_ms):
             fail(f"step-pass launch counts {counts}, expected (2, 1)")
         del x, out, again, xn, xw, want
         torch.cuda.empty_cache()
+    for shape in SCORE_SHAPES:
+        rows["scores " + "x".join(map(str, shape))] = scores_row(
+            dev, gen, shape, cuda_ms)
     return rows
+
+
+def queued_ms(fn, reps):
+    """Device ms a call of ``fn``, ``reps`` calls run back to back: they
+    are queued behind a ~20 ms device sleep, so the host's time to launch
+    them drops out of the events' interval."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+# The step's score-and-root kernel on B1's moments at the cells' shapes:
+# cell 2's step, the bootstrap's batch, the gene screen's first step.
+SCORE_SHAPES = ((3999, 487), (32, 3999, 487), (65_164, 964))
+
+
+def scores_row(dev, gen, shape, cuda_ms):
+    """Phase 4b's score kernel at ``shape``: ``step_passes.scores_root`` on
+    the step-pass kernels' column moments and B1's pair moments of a
+    standardized buffer against the composed ``step_scores`` and
+    ``torch.argmax``: the same roots, the scores within 1e-12 relative,
+    a repeat call and batch element 0 bit for bit; device ms a call
+    against the bound by bytes (M1 and M2 read once, the scores written,
+    at 3.35 TB/s) and the composed version's, each from calls queued
+    behind a device sleep (:func:`queued_ms`): both are host-bound one
+    call at a time."""
+    import torch
+    from repro_torch.core import ordering
+    from repro_torch.kernels import ops, step_passes
+
+    lead, (m, w) = shape[:-2], shape[-2:]
+    x = (torch.empty(shape, device=dev).exponential_(generator=gen) * 2.0
+         + 5.0)
+    x = x * torch.linspace(0.5, 2.0, w, device=dev)  # unequal columns
+    st = step_passes.standardize(x)
+    cm1, cm2 = st[4]
+    m1, m2 = ops.pairwise_moments(st[0], st[1])
+    del x, st
+    active = torch.ones((*lead, w), dtype=torch.bool, device=dev)
+
+    def composed():
+        k = ordering.step_scores(cm1, cm2, m1, m2, active)
+        return torch.argmax(k, dim=-1), k
+
+    step_passes.scores_launches = 0
+    root, k_list = step_passes.scores_root(cm1, cm2, m1, m2)
+    again = step_passes.scores_root(cm1, cm2, m1, m2)
+    want_root, want = composed()
+    torch.cuda.synchronize()
+    launches = step_passes.scores_launches
+    err = float(((k_list - want).abs() / want.abs().clamp_min(1e-300)).max())
+    repeat = torch.equal(root, again[0]) and torch.equal(k_list, again[1])
+    same_root = torch.equal(root, want_root)
+    layout = True
+    if lead:
+        single = step_passes.scores_root(
+            cm1[0], cm2[0], m1[0].contiguous(), m2[0].contiguous())
+        layout = (torch.equal(single[0], root[0])
+                  and torch.equal(single[1], k_list[0]))
+    ms = queued_ms(lambda: step_passes.scores_root(cm1, cm2, m1, m2), 20)
+    plain_ms = queued_ms(composed, 5)
+    b = shape[0] if lead else 1
+    bytes_ms = b * (8 * w * w + 16 * w) / 3.35e12 * 1e3
+    print(f"phase 4b: scores at {shape}: {ms:.4f} ms (bytes {bytes_ms:.4f} "
+          f"ms), composed {plain_ms:.4f} ms; roots equal {same_root}, "
+          f"scores within {err:.2e} relative; repeat bit-equal {repeat}, "
+          f"batch element bit-equal {layout}; launches {launches}",
+          flush=True)
+    if not (same_root and err <= 1e-12 and repeat and layout):
+        fail(f"score kernel at {shape}: roots {same_root}, err {err:.2e}, "
+             f"repeat {repeat}, layout {layout}")
+    if launches != 2:
+        fail(f"score kernel launch count {launches}, expected 2")
+    return {"scores_ms": ms, "scores_bytes_ms": bytes_ms, "plain_ms": plain_ms,
+            "rel_err": err, "roots_equal": same_root,
+            "repeat_bit_equal": repeat, "layout_bit_equal": layout}
 
 
 def walk_against_plain(x, kernel, plain, atol, x_plain=None):
@@ -489,8 +586,8 @@ def walk_against_plain(x, kernel, plain, atol, x_plain=None):
                 fail(f"step {step}: plain scores rank root {best} above the "
                      f"kernel's {root} by {gap:.3e}, beyond the tolerance")
         want = int(labels[root])
-        x, labels = ordering._active_width_step(x, active, labels, order,
-                                                step, kernel)
+        x, labels = ordering._active_width_step(x, labels, order, step,
+                                                kernel)
         if int(order[step]) != want:
             fail(f"step {step}: replay picked {int(order[step])}, expected "
                  f"{want}")
@@ -1555,7 +1652,7 @@ def main() -> int:
         print(f"  ptxas: {entry}: {rep}")
     # A cached library keeps its nvcc log beside it, so the report is
     # whole on every run.
-    if len(ptxas) != 13 or any(len(r) != 3 for r in ptxas.values()):
+    if len(ptxas) != 16 or any(len(r) != 3 for r in ptxas.values()):
         fail(f"ptxas report incomplete: {ptxas}")
 
     # 2. kernel against its plain version on the card
@@ -1923,13 +2020,15 @@ def main() -> int:
     for compaction in ("none", "staged"):
         pairwise_stats.launches = 0
         step_passes.launches = step_passes.residualize_launches = 0
+        step_passes.scores_launches = 0
         fit_s, model = timed(
             lambda: DirectLiNGAM(compaction=compaction).fit(gt.data))
         n_launch = pairwise_stats.launches
         step_launches = (step_passes.launches,
-                         step_passes.residualize_launches)
+                         step_passes.residualize_launches,
+                         step_passes.scores_launches)
         step_calls[compaction] = step_launches
-        if step_launches != (wl.d - 1, wl.d - 1):
+        if step_launches != (wl.d - 1,) * 3:
             fail(f"expected {wl.d - 1} step-pass calls of each wrapper (the "
                  f"last column needs no step), got {step_launches}")
         consistent = order_consistent(model.causal_order_, gt.adjacency)
@@ -3063,10 +3162,12 @@ def main() -> int:
         "replaces": None,
         "launches": step_calls["none"][0],
         "residualize_launches": step_calls["none"][1],
+        "scores_launches": step_calls["none"][2],
         "shapes": step_rows,
         "library_ms": None,
         "ptxas": regs("col_stats", "stats_merge", "standardize_moments",
-                      "gram", "finish", "residualize"),
+                      "gram", "finish", "residualize", "score_tiles",
+                      "score_root", "score_fused"),
     }]}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s (test shapes worst err: B1 "

@@ -25,11 +25,12 @@ and the residual update writes the w - 1 surviving columns (no step at
 w = 1). On a CUDA tensor the step's column passes are the hand-written
 kernels of :mod:`repro_torch.kernels.step_passes` (six launches a step:
 the column statistics, the standardization with the column moments and
-the correlation, the residual update); on a CPU tensor their plain
+the correlation, the residual update), and its scores and root one
+``scores_root`` call (one or two launches); on a CPU tensor their plain
 versions, :func:`step_standardize` (through the reducer's
 ``mean_over_samples`` and ``gram_mean``),
-:func:`repro_torch.core.measures.nonlinear_moments` and
-:func:`compact_residualize`.
+:func:`repro_torch.core.measures.nonlinear_moments`, :func:`step_scores`
+with ``torch.argmax``, and :func:`compact_residualize`.
 
 The mesh plan's reductions cross the shards between the passes, so it
 runs the composed passes over a buffer whose width stays a multiple of
@@ -43,11 +44,13 @@ calls run at.
 
 With telemetry on, each step's phases are spans (``order.standardize``,
 with ``path="kernel"`` or ``path="composed"``, the kernels' column moments
-and correlation inside it; ``order.scores``; ``order.residualize``; the
-moment call between them is ``kernels.dispatch`` and ``kernels.moments``),
-each stage's gather in the staged schedule is ``order.compact``, and the
-counter ``order.pair_terms`` adds up the w (w - 1) pairs of each moment
-call over the batch.
+and correlation inside it; ``order.scores``, with ``path`` likewise;
+``order.residualize``; the moment call between them is
+``kernels.dispatch`` and ``kernels.moments``), each stage's gather in the
+staged schedule is ``order.compact``, the counter ``order.pair_terms``
+adds up the w (w - 1) pairs of each moment call over the batch, and
+``order.scores_kernel`` the batch's elements of each step scored by the
+kernel.
 
 Every function here takes an optional leading batch axis: data (b, m, w),
 mask (b, w), roots (b,); without it, (m, w), (w,) and a 0-d root. The
@@ -227,16 +230,31 @@ def ordering_scores(x, active, *, backend=None):
 
 def _step_root(x, active, reducer):
     """A step's standardization and root: the :class:`StepStats` of ``x``
-    and the argmax of the scores over ``active``."""
+    and the argmax of the scores over ``active``. ``active`` None means
+    every column of the buffer (the compacting loop): on the card's local
+    plan the scores and the root are then one
+    :func:`repro_torch.kernels.step_passes.scores_root` call (span
+    ``order.scores`` with ``path="kernel"``, counter
+    ``order.scores_kernel`` the batch's elements); otherwise the composed
+    :func:`step_scores` and ``torch.argmax`` (``path="composed"``)."""
     with obs_trace.span("order.standardize") as sp:
         st = reducer.standardize(x)
         sp.set(path="composed" if st.gram is None else "kernel")
     w = x.shape[-1]
-    obs_metrics.inc("order.pair_terms",
-                    w * (w - 1) * (x.shape[0] if x.dim() == 3 else 1))
+    b = x.shape[0] if x.dim() == 3 else 1
+    obs_metrics.inc("order.pair_terms", w * (w - 1) * b)
     rows1, rows2 = reducer.moment_rows(st.x_std, st.c)
     m1, m2 = reducer.gather_rows(rows1), reducer.gather_rows(rows2)
-    with obs_trace.span("order.scores"):
+    with obs_trace.span("order.scores") as sp:
+        if active is None and st.gram is not None:
+            sp.set(path="kernel")
+            obs_metrics.inc("order.scores_kernel", b)
+            root, _ = step_passes.scores_root(*st.col_moments, m1, m2)
+            return st, root
+        sp.set(path="composed")
+        if active is None:
+            active = torch.ones(w, dtype=torch.bool,
+                                device=x.device).expand(*x.shape[:-2], w)
         cm1, cm2 = st.col_moments or reducer.col_moments(st.x_std)
         k_list = step_scores(cm1, cm2, m1, m2, active)
         root = torch.argmax(k_list, dim=-1)  # first maximum, as jnp.argmax
@@ -307,8 +325,8 @@ def compact_residualize(x, root, mu, var, labels, order, k, reducer):
     return x_new, labels_new
 
 
-def _active_width_step(x, active, labels, order, k, reducer):
-    st, root = _step_root(x, active, reducer)
+def _active_width_step(x, labels, order, k, reducer):
+    st, root = _step_root(x, None, reducer)
     with obs_trace.span("order.residualize"):
         if st.gram is None:
             return compact_residualize(x, root, st.mu, st.var, labels,
@@ -319,15 +337,14 @@ def _active_width_step(x, active, labels, order, k, reducer):
 
 def masked_order_impl(x, reducer, *, d=None):
     """The local plan's ordering, compacted at every step: step k runs at
-    width w = d - k, every column of the buffer active (the mask a view
-    of one all-true tensor), and the residual update writes the w - 1
-    surviving columns, their labels and the root's label into the order;
-    the last column needs no step. Returns the order as a (d,) int64
-    tensor on ``x``'s device, or (b, d) for a batch (b, m, d): the order
-    of :func:`full_width_order_impl`, since every per-column quantity is
-    the same at every width. ``d`` is the number of real variables;
-    columns past it are left out. On the card the kernels' update does
-    the bookkeeping; on the CPU :func:`compact_residualize`."""
+    width w = d - k, every column of the buffer active, and the residual
+    update writes the w - 1 surviving columns, their labels and the root's
+    label into the order; the last column needs no step. Returns the order
+    as a (d,) int64 tensor on ``x``'s device, or (b, d) for a batch (b, m,
+    d): the order of :func:`full_width_order_impl`, since every per-column
+    quantity is the same at every width. ``d`` is the number of real
+    variables; columns past it are left out. On the card the kernels'
+    update does the bookkeeping; on the CPU :func:`compact_residualize`."""
     if d is not None:
         x = x[..., :d]
     lead, d = x.shape[:-2], x.shape[-1]
@@ -336,11 +353,8 @@ def masked_order_impl(x, reducer, *, d=None):
     if d == 1:
         return labels
     order = torch.empty_like(labels)
-    all_active = torch.ones(d, dtype=torch.bool, device=x.device)
     for k in range(d - 1):
-        w = d - k
-        x, labels = _active_width_step(
-            x, all_active[:w].expand(*lead, w), labels, order, k, reducer)
+        x, labels = _active_width_step(x, labels, order, k, reducer)
     return order
 
 

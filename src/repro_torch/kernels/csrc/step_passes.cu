@@ -37,6 +37,24 @@
 //      (m, w - 1) buffer, so the next step runs at the active width, and
 //      keeps the labels: the surviving columns' original indices, the
 //      root's into the order. The root stays on the device.
+//   Between 3 and 4, after kernel B1 has written the pairs' moments M1, M2:
+//   5. score_tiles_kernel, score_root_kernel: the step's scores and root
+//      from (cm1, cm2, M1, M2), every column active (the ordering's buffer
+//      is compacted at every step). Each entropy H = H_gauss - K1 (m1 -
+//      gamma)^2 - K2 m2^2, each diff[i, j] = (H(x_j) + H(r_ij)) - (H(x_i) +
+//      H(r_ji)) and each min(diff, 0)^2 in float32 by the composed
+//      function's operations in its order, pinned by rounding intrinsics,
+//      so every term is the composed term's bits; k_list[i] = minus the
+//      float64 sum of row i's terms, the root the first maximum of k_list
+//      as torch.argmax takes it (NaN above every number, ties to the lower
+//      index). The tile kernel takes a 32 x 32 tile pair (P, Q), P <= Q, a
+//      block, reads M1 and M2 at (P, Q) and at (Q, P) once each (so the
+//      (w, w) moments are read once a step), and writes each row's sum
+//      over the other tile; the root kernel, a block an element, adds a
+//      row's tile sums in tile order and takes the argmax. Up to 64
+//      columns (at most three tile pairs) score_fused_kernel does both in
+//      one launch, a block an element: a narrow step is bound by its
+//      launches, not its bytes.
 //
 // What bounds it: bytes, but for the Gram product. A step reads the (m, w)
 // buffer three times and x_std once, and writes x_std and the residualized
@@ -55,6 +73,12 @@
 //   * the Gram sums on the tensor cores, the symmetric half only, the
 //     panels copied by cp.async under the previous slab's products and
 //     kept in float32 in shared memory (half the bytes of float64).
+//
+// The scores read 8 w^2 bytes an element (1.9 MB at w = 487, 7.4 MB at 964)
+// and write w float64 scores: at 3.35 TB/s 0.6 and 2.2 us, under a
+// launch's cost, so their kernels are bound by launches wherever the
+// ordering runs them; what their design does about that is one launch
+// (two past 64 columns) in place of the composed function's ~30.
 //
 // Summation order, fixed by m alone: the sample axis is cut into splits of
 // whole 32-sample slabs (column passes: at most 512 splits of at least 8
@@ -500,6 +524,215 @@ residualize_kernel(const float* __restrict__ x, const long long* __restrict__ ro
   }
 }
 
+constexpr int kScoreTile = 32;     // score tile edge: a warp a tile row
+constexpr int kScoreLd = kScoreTile + 1;  // shared row stride, conflict-free
+constexpr int kScoreWarps = 8;
+constexpr int kFusedTiles = 2;     // up to 2 x 2 tiles: one fused launch
+constexpr int kRootThreads = 512;
+
+// The constants of measures.entropy_from_moments, rounded to float32 as
+// the composed function's scalar operands are.
+struct EntropyConsts {
+  float h_gauss;
+  float k1;
+  float k2;
+  float gamma;
+};
+
+// (H_gauss - K1 (m1 - gamma)^2) - K2 m2^2, each float32 operation of the
+// composed function in its order.
+__device__ __forceinline__ float entropy_f32(float m1, float m2,
+                                             const EntropyConsts& e) {
+  const float a = __fsub_rn(m1, e.gamma);
+  const float h = __fsub_rn(e.h_gauss, __fmul_rn(__fmul_rn(a, a), e.k1));
+  return __fsub_rn(h, __fmul_rn(__fmul_rn(m2, m2), e.k2));
+}
+
+// One score term, (h_col[j] + h_res[i, j]) - (h_col[i] + h_res[j, i]) and
+// then torch.clamp(diff, max=0) ** 2: a NaN passes through.
+__device__ __forceinline__ float score_term(float hc_j, float h_ij, float hc_i,
+                                            float h_ji) {
+  const float diff = __fsub_rn(__fadd_rn(hc_j, h_ij), __fadd_rn(hc_i, h_ji));
+  const float c = diff > 0.0f ? 0.0f : diff;
+  return __fmul_rn(c, c);
+}
+
+// The float64 sum of a warp's 32 values, in a fixed tree; lane 0 holds it.
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+struct ScoreSmem {
+  float h_pq[kScoreTile][kScoreLd];  // H(r_ij), i in tile P, j in tile Q
+  float h_qp[kScoreTile][kScoreLd];  // H(r_ji)
+  float hc_p[kScoreTile];            // H(x_i), i in tile P
+  float hc_q[kScoreTile];            // H(x_j), j in tile Q
+};
+
+// The terms of tile pair (p, q), p <= q, of one element: warp by warp a
+// tile row, a lane a column. Row i of tile p's terms over tile q's columns
+// are summed into part[q * w + i] and, for p < q, row j of tile q's over
+// tile p's into part[p * w + j]; the diagonal's term is left out. M1 and M2
+// are read at (p, q) and, off the diagonal, at (q, p): once a step.
+__device__ __forceinline__ void score_tile_pair(
+    ScoreSmem& sm, const float* __restrict__ cm1,
+    const float* __restrict__ cm2, const float* __restrict__ m1,
+    const float* __restrict__ m2, double* __restrict__ part, int w, int p,
+    int q, const EntropyConsts& e) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int p0 = p * kScoreTile;
+  const int q0 = q * kScoreTile;
+  const bool diag = p == q;
+  if (warp == 0 && p0 + lane < w) {
+    sm.hc_p[lane] = entropy_f32(cm1[p0 + lane], cm2[p0 + lane], e);
+  } else if (warp == 1 && q0 + lane < w) {
+    sm.hc_q[lane] = entropy_f32(cm1[q0 + lane], cm2[q0 + lane], e);
+  }
+  for (int r = warp; r < kScoreTile; r += kScoreWarps) {
+    if (p0 + r < w && q0 + lane < w) {
+      const long long o = (long long)(p0 + r) * w + q0 + lane;
+      sm.h_pq[r][lane] = entropy_f32(__ldg(m1 + o), __ldg(m2 + o), e);
+    }
+    if (!diag && q0 + r < w && p0 + lane < w) {
+      const long long o = (long long)(q0 + r) * w + p0 + lane;
+      sm.h_qp[r][lane] = entropy_f32(__ldg(m1 + o), __ldg(m2 + o), e);
+    }
+  }
+  __syncthreads();
+  const float(*h_qp)[kScoreLd] = diag ? sm.h_pq : sm.h_qp;
+  for (int r = warp; r < kScoreTile; r += kScoreWarps) {
+    const int i = p0 + r;
+    const int j = q0 + lane;
+    float t = 0.0f;  // entry (i, j)
+    if (i < w && j < w && i != j) {
+      t = score_term(sm.hc_q[lane], sm.h_pq[r][lane], sm.hc_p[r],
+                     h_qp[lane][r]);
+    }
+    const double s = warp_sum((double)t);
+    if (lane == 0 && i < w) part[(long long)q * w + i] = s;
+    if (diag) continue;
+    const int jr = q0 + r;
+    const int ic = p0 + lane;
+    float t2 = 0.0f;  // entry (jr, ic)
+    if (jr < w && ic < w) {
+      t2 = score_term(sm.hc_p[lane], sm.h_qp[r][lane], sm.hc_q[r],
+                      sm.h_pq[lane][r]);
+    }
+    const double s2 = warp_sum((double)t2);
+    if (lane == 0 && jr < w) part[(long long)p * w + jr] = s2;
+  }
+  __syncthreads();  // the tiles are refilled by the next pair
+}
+
+// (a, ia) ranks before (b, ib) in torch.argmax's order: NaN above every
+// number, then the larger value, then the lower index.
+__device__ __forceinline__ bool ranks_before(double a, int ia, double b,
+                                             int ib) {
+  const bool na = a != a;
+  const bool nb = b != b;
+  if (na || nb) return na && (!nb || ia < ib);
+  return a > b || (a == b && ia < ib);
+}
+
+// k_list[i] = -(part[0 * w + i] + part[1 * w + i] + ...), the tile sums
+// added in tile order, and root = the first maximum of k_list; a block an
+// element, any multiple of 32 threads up to kRootThreads.
+__device__ __forceinline__ void score_root(const double* __restrict__ part,
+                                           double* __restrict__ k_list,
+                                           long long* __restrict__ root,
+                                           int w, int nt) {
+  __shared__ double s_val[kRootThreads / 32];
+  __shared__ int s_idx[kRootThreads / 32];
+  double best = 0.0;
+  int bi = -1;
+  for (int i = threadIdx.x; i < w; i += blockDim.x) {
+    double s = 0.0;
+    for (int t = 0; t < nt; ++t) s += part[(long long)t * w + i];
+    const double k = -s;
+    k_list[i] = k;
+    if (bi < 0 || ranks_before(k, i, best, bi)) {
+      best = k;
+      bi = i;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const double ob = __shfl_down_sync(0xffffffffu, best, off);
+    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+    if (oi >= 0 && (bi < 0 || ranks_before(ob, oi, best, bi))) {
+      best = ob;
+      bi = oi;
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    s_val[warp] = best;
+    s_idx[warp] = bi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int v = 1; v < (int)(blockDim.x >> 5); ++v) {
+      if (s_idx[v] >= 0 && (bi < 0 || ranks_before(s_val[v], s_idx[v], best,
+                                                   bi))) {
+        best = s_val[v];
+        bi = s_idx[v];
+      }
+    }
+    *root = bi;
+  }
+}
+
+// A block a tile pair of element blockIdx.y: part (batch, nt, w).
+__global__ void __launch_bounds__(32 * kScoreWarps)
+score_tiles_kernel(const float* __restrict__ cm1, const float* __restrict__ cm2,
+                   const float* __restrict__ m1, const float* __restrict__ m2,
+                   double* __restrict__ part, int w, int nt,
+                   EntropyConsts e) {
+  __shared__ ScoreSmem sm;
+  const long long elem = blockIdx.y;
+  int p, q;
+  upper_tile(blockIdx.x, nt, p, q);
+  score_tile_pair(sm, cm1 + elem * w, cm2 + elem * w,
+                  m1 + elem * w * (long long)w, m2 + elem * w * (long long)w,
+                  part + elem * nt * (long long)w, w, p, q, e);
+}
+
+__global__ void __launch_bounds__(kRootThreads)
+score_root_kernel(const double* __restrict__ part, double* __restrict__ k_list,
+                  long long* __restrict__ root, int w, int nt) {
+  const long long elem = blockIdx.y;
+  score_root(part + elem * nt * (long long)w, k_list + elem * w, root + elem,
+             w, nt);
+}
+
+// Up to kFusedTiles tiles a side: a block an element takes every tile pair
+// in turn and then the root, in one launch (its tile sums are its own
+// writes, visible to the block after the pair's barrier).
+__global__ void __launch_bounds__(32 * kScoreWarps)
+score_fused_kernel(const float* __restrict__ cm1, const float* __restrict__ cm2,
+                   const float* __restrict__ m1, const float* __restrict__ m2,
+                   double* __restrict__ part, double* __restrict__ k_list,
+                   long long* __restrict__ root, int w, int nt,
+                   EntropyConsts e) {
+  __shared__ ScoreSmem sm;
+  const long long elem = blockIdx.y;
+  part += elem * nt * (long long)w;
+  for (int u = 0; u < nt * (nt + 1) / 2; ++u) {
+    int p, q;
+    upper_tile(u, nt, p, q);
+    score_tile_pair(sm, cm1 + elem * w, cm2 + elem * w,
+                    m1 + elem * w * (long long)w, m2 + elem * w * (long long)w,
+                    part, w, p, q, e);
+  }
+  score_root(part, k_list + elem * w, root + elem, w, nt);
+}
+
 }  // namespace
 
 // Column statistics, standardization with the column moments, and the Gram
@@ -576,5 +809,33 @@ extern "C" int step_residualize(const float* x, const long long* root,
   residualize_kernel<<<grid, kColThreads, 0, stream>>>(
       x, root, gram, var, labels, x_new, labels_new, order, m, w, d, k,
       col_tiles, rows_per_block);
+  return (int)cudaGetLastError();
+}
+
+// The step's scores and root from the column moments cm1, cm2 (batch, w)
+// and the pairs' moments m1, m2 (batch, w, w), all float32, every column
+// active: k_list (batch, w) float64 and root (batch,) int64; scratch part
+// (batch, ceil(w / 32), w) doubles. One launch up to 64 columns, two past.
+extern "C" int step_scores_root(const float* cm1, const float* cm2,
+                                const float* m1, const float* m2,
+                                double* part, double* k_list, long long* root,
+                                int w, int batch, float h_gauss, float k1,
+                                float k2, float gamma, cudaStream_t stream) {
+  if (w < 1 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  const int nt = (w + kScoreTile - 1) / kScoreTile;
+  const EntropyConsts e{h_gauss, k1, k2, gamma};
+  if (nt <= kFusedTiles) {
+    score_fused_kernel<<<dim3(1, (unsigned)batch), 32 * kScoreWarps, 0,
+                         stream>>>(cm1, cm2, m1, m2, part, k_list, root, w,
+                                   nt, e);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((unsigned)(nt * (nt + 1) / 2), (unsigned)batch);
+  score_tiles_kernel<<<grid, 32 * kScoreWarps, 0, stream>>>(
+      cm1, cm2, m1, m2, part, w, nt, e);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  score_root_kernel<<<dim3(1, (unsigned)batch), kRootThreads, 0, stream>>>(
+      part, k_list, root, w, nt);
   return (int)cudaGetLastError();
 }

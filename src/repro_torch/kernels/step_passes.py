@@ -1,11 +1,13 @@
-"""CUDA kernels for the ordering step's column passes.
+"""CUDA kernels for the ordering step's column passes and its root.
 
 One DirectLiNGAM ordering step (:mod:`repro_torch.core.ordering`)
 standardizes the working buffer, forms its correlation and column moments,
-and regresses the other columns on the chosen root. Composed from PyTorch
-ops that is ~70 launches and ~90 passes over the buffer's bytes a step
-(a float64 copy of it for the Gram product among them). The kernels of
-``csrc/step_passes.cu`` do the same work in six launches:
+scores the columns from those and kernel B1's pair moments, and regresses
+the other columns on the chosen root. Composed from PyTorch ops the
+column passes are ~70 launches and ~90 passes over the buffer's bytes a
+step (a float64 copy of it for the Gram product among them), the scores
+and the root ~30 launches. The kernels of ``csrc/step_passes.cu`` do the
+same work in six launches and one or two:
 
   * :func:`standardize` -- each column's float64 mean and centred sum of
     squares (a two-pass mean and variance within each 32-sample slab, the
@@ -18,24 +20,31 @@ ops that is ~70 launches and ~90 passes over the buffer's bytes a step
     root, the root's covariances taken from the step's float64 Gram sums,
     written into a buffer one column narrower (the root's column left
     out), with the columns' labels and the root's place in the order: the
-    next step runs at the active width.
+    next step runs at the active width;
+  * :func:`scores_root` -- the step's scores and root from the column
+    moments and B1's pair moments, every column active: each float32 term
+    of the composed ``step_scores`` bit for bit, the float64 row sums, the
+    first maximum.
 
-The kernels replace no Pallas kernel: the JAX step is plain ``jnp``. They
-are bound by bytes, about six passes over the buffer a step (four reads,
-two writes), but for the Gram product, bound by the FP64 tensor cores; the
-source's header says what the design does about each.
+The kernels replace no Pallas kernel: the JAX step is plain ``jnp``. The
+column passes are bound by bytes, about six passes over the buffer a step
+(four reads, two writes), but for the Gram product, bound by the FP64
+tensor cores; the scores by their launches; the source's header says what
+the design does about each.
 Every sum runs over the samples in an order fixed by m alone (the splits
 of :func:`split_plan`), never by the width, the column's position, the
 batch or the tile, so a column's statistics, moments and C entries are the
 same bits in every layout: the ordering compacted at every step keeps the
 masked scan's order, and a batch element the single fit's.
 
-Both functions take a leading batch axis, x (b, m, w), and raise on a
-tensor off the card: the plain versions are the composed functions of
-:mod:`repro_torch.core.ordering` (``step_standardize``,
-``compact_residualize``) and
+:func:`standardize` and :func:`residualize` take a leading batch axis,
+x (b, m, w), and raise on a tensor off the card: the plain versions are the
+composed functions of :mod:`repro_torch.core.ordering`
+(``step_standardize``, ``compact_residualize``) and
 :func:`repro_torch.core.measures.nonlinear_moments`, which the ordering
-takes for a CPU tensor.
+takes for a CPU tensor. :func:`scores_root` takes the batch too, and runs
+its plain version, ``ordering.step_scores`` and ``torch.argmax``, on a
+CPU tensor; it raises on any other device.
 """
 
 from __future__ import annotations
@@ -56,10 +65,14 @@ GRAM_SPLITS = (128, 32)
 RESID_ROWS = 64  # samples a block of the residual update
 MAX_BATCH = 65535  # the grid's y extent
 
+SCORE_TILE = 32  # score tile edge (the kernels' kScoreTile)
+
 # Calls that ran on the card: one per standardize (five kernel launches),
-# one per residualize (one launch).
+# one per residualize (one launch), one per scores_root (one launch up to
+# 64 columns, two past).
 launches = 0
 residualize_launches = 0
+scores_launches = 0
 
 
 def split_plan(m: int, max_splits: int, min_slabs: int):
@@ -85,7 +98,22 @@ def _lib():
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.step_scores_root.restype = ctypes.c_int
+    lib.step_scores_root.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
     return lib
+
+
+@functools.cache
+def _entropy_constants():
+    """(H_gauss, K1, K2, gamma) of ``measures.entropy_from_moments`` as
+    float32, as the composed function's scalar operands round them."""
+    from repro_torch.core import measures
+
+    return tuple(float(torch.tensor(v, dtype=torch.float32)) for v in (
+        measures._H_GAUSS, measures.K1, measures.K2, measures.GAMMA))
 
 
 def _check(x):
@@ -198,3 +226,57 @@ def residualize(x, root, gram, var, labels, order, k):
         raise RuntimeError(f"step_residualize: CUDA error {err}")
     residualize_launches += 1
     return x_new, labels_new
+
+
+def scores_root(cm1, cm2, m1, m2):
+    """The step's scores and root, every column active.
+
+    Args:
+      cm1, cm2: (w,) or (b, w) float32 column moments (``standardize``'s).
+      m1, m2:   (w, w) or (b, w, w) float32 pair moments (kernel B1's).
+    Returns:
+      (root, k_list): the first maximum of k_list, a 0-d or (b,) int64
+      device tensor, and the (..., w) float64 scores of
+      ``ordering.step_scores`` with every column active. On the card
+      each float32 term is the composed one's bits and a row's terms are
+      summed in an order fixed by w; on a CPU tensor it runs the composed
+      function and ``torch.argmax``.
+    """
+    global scores_launches
+    if not m1.is_cuda:
+        if m1.device.type != "cpu":
+            raise ValueError(f"no score kernel for {m1.device}")
+        from repro_torch.core import ordering
+
+        active = torch.ones(cm1.shape, dtype=torch.bool, device=m1.device)
+        k_list = ordering.step_scores(cm1, cm2, m1, m2, active)
+        return torch.argmax(k_list, dim=-1), k_list
+    lead, w = cm1.shape[:-1], cm1.shape[-1]
+    b = lead[0] if lead else 1
+    if (len(lead) > 1 or w < 1 or not 1 <= b <= MAX_BATCH
+            or tuple(cm2.shape) != (*lead, w)
+            or tuple(m1.shape) != (*lead, w, w)
+            or tuple(m2.shape) != (*lead, w, w)):
+        raise ValueError(f"column moments (..., w) and pair moments (..., w, "
+                         f"w) with at most one batch axis, got "
+                         f"{tuple(cm1.shape)}, {tuple(cm2.shape)}, "
+                         f"{tuple(m1.shape)}, {tuple(m2.shape)}")
+    ins = (cm1, cm2, m1, m2)
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.device != m1.device for t in ins):
+        raise TypeError("the score kernel takes contiguous float32 moments "
+                        "on one device")
+    dev = m1.device
+    nt = -(-w // SCORE_TILE)
+    part = torch.empty((b, nt, w), dtype=torch.float64, device=dev)
+    k_list = torch.empty((*lead, w), dtype=torch.float64, device=dev)
+    root = torch.empty(lead, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().step_scores_root(
+            *(t.data_ptr() for t in ins), part.data_ptr(), k_list.data_ptr(),
+            root.data_ptr(), w, b, *_entropy_constants(),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"step_scores_root: CUDA error {err}")
+    scores_launches += 1
+    return root, k_list

@@ -29,7 +29,11 @@ column-pass kernels against the composed passes (tolerances on each
 test), bit-identical across buffer widths and batch sizes, and the staged
 order equal to the masked one through them; the ordering compacted at
 every step against the masked scan at full width, bit for bit, and its
-``order.pair_terms`` count.
+``order.pair_terms`` count. The step's score-and-root kernel against the
+composed ``step_scores`` and ``torch.argmax``: the same root, the scores
+within float64 rounding (bit for bit where a row has one term), tied
+maxima to the first, an element's bits the same alone as in a batch, and
+the card's ordering the composed path's order.
 """
 
 import os
@@ -948,11 +952,13 @@ def test_cuda_staged_order_equals_masked_with_step_kernels(cuda_device):
     x = torch.as_tensor(np.ascontiguousarray(gt.data, np.float32),
                         device=cuda_device)
     masked, _ = _compacted_against_masked(x)
-    before = (step_passes.launches, step_passes.residualize_launches)
+    before = (step_passes.launches, step_passes.residualize_launches,
+              step_passes.scores_launches)
     local = ordering.causal_order(x)
-    assert (step_passes.launches, step_passes.residualize_launches) == (
-        before[0] + 39, before[1] + 39)
-    obs.reset()
+    assert (step_passes.launches, step_passes.residualize_launches,
+            step_passes.scores_launches) == (
+        before[0] + 39, before[1] + 39, before[2] + 39)
+    obs.reset_all()
     obs.enable()
     try:
         staged = api.fit_fn(x, api.FitConfig(compaction="staged",
@@ -964,12 +970,16 @@ def test_cuda_staged_order_equals_masked_with_step_kernels(cuda_device):
         names = [s.name for s in spans]
         paths = {s.attrs.get("path") for s in spans
                  if s.name == "order.standardize"}
+        score_paths = [s.attrs.get("path") for s in spans
+                       if s.name == "order.scores"]
+        scored = obs.metrics.snapshot()["counters"]["order.scores_kernel"]
     finally:
         obs.disable()
-        obs.reset()
+        obs.reset_all()
     assert torch.equal(local, masked)
     assert torch.equal(staged, masked)
     assert paths == {"kernel"}
+    assert score_paths == ["kernel"] * 39 and scored == 39
     assert "order.compact" not in names
 
 
@@ -998,6 +1008,144 @@ def test_cuda_gene_screen_fit_staged_equals_masked_at_width_964(cuda_device):
     np.testing.assert_array_equal(staged.adjacency_, masked.adjacency_)
     assert sorted(staged.causal_order_.tolist()) == list(range(964))
     assert np.isfinite(staged.adjacency_).all()
+
+
+def _score_moments(b, w, seed, device="cuda"):
+    """Column and pair moments of the spread a step's have: E log cosh
+    near gamma, E u exp(-u^2 / 2) near 0; (w,) and (w, w) for b None."""
+    from repro_torch.core import measures
+
+    rng = np.random.default_rng(seed)
+    lead = () if b is None else (b,)
+    cm1 = measures.GAMMA + 0.04 * rng.standard_normal((*lead, w))
+    cm2 = 0.08 * rng.standard_normal((*lead, w))
+    m1 = measures.GAMMA + 0.04 * rng.standard_normal((*lead, w, w))
+    m2 = 0.08 * rng.standard_normal((*lead, w, w))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in (cm1, cm2, m1, m2))
+
+
+def _composed_scores_root(cm1, cm2, m1, m2):
+    from repro_torch.core import ordering
+
+    active = torch.ones(cm1.shape, dtype=torch.bool, device=cm1.device)
+    k_list = ordering.step_scores(cm1, cm2, m1, m2, active)
+    return torch.argmax(k_list, dim=-1), k_list
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 3, 37, 487, 964])
+@pytest.mark.parametrize("b", [None, 1, 3, 32])
+def test_cuda_scores_root_matches_composed(cuda_device, b, w):
+    """The score kernel against the composed ``step_scores`` and
+    ``torch.argmax`` on the card: the same root in every element, the
+    scores within 1e-12 relative (the same float32 terms, a float64 sum in
+    another order), bit for bit at w = 2 (one term a row), one counted
+    call."""
+    from repro_torch.kernels import step_passes
+
+    ins = _score_moments(b, w, seed=10 * w + (b or 0))
+    before = step_passes.scores_launches
+    root, k_list = step_passes.scores_root(*ins)
+    torch.cuda.synchronize()
+    assert step_passes.scores_launches == before + 1
+    want_root, want = _composed_scores_root(*ins)
+    assert root.dtype == torch.int64 and root.shape == want_root.shape
+    assert torch.equal(root, want_root)
+    assert k_list.dtype == torch.float64
+    torch.testing.assert_close(k_list, want, rtol=1e-12, atol=0)
+    if w == 2:
+        assert torch.equal(k_list, want)
+    assert (k_list < 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [7, 64, 65, 487])
+def test_cuda_scores_root_first_maximum_wins_ties(cuda_device, w):
+    """Tied best columns go to the first of them, as ``torch.argmax``
+    gives it, on both launch plans (one launch up to 64 columns, two
+    past): twins at various places, twins in two tiles, and an element
+    whose columns are all alike (root 0)."""
+    from repro_torch.core import measures
+    from repro_torch.kernels import step_passes
+
+    g = measures.GAMMA
+    twins = [(2, 5), (0, w - 1), (), (w - 2, w - 1), (1, 3, w - 3)]
+    rng = np.random.default_rng(w)
+    b = len(twins)
+    m1 = g + 0.05 * rng.random((b, w, w))
+    m2 = 0.1 * rng.standard_normal((b, w, w))
+    cm1, cm2 = np.full((b, w), g + 0.02), np.full((b, w), 0.05)
+    for k, ts in enumerate(twins):
+        if not ts:
+            m1[k], m2[k] = g + 0.03, 0.07
+        for t in ts:
+            m1[k, :, t], m2[k, :, t] = g + 0.5, 0.3
+        for t in ts:
+            m1[k, t, :], m2[k, t, :] = g, 0.0
+    ins = tuple(torch.tensor(a, dtype=torch.float32, device=cuda_device)
+                for a in (cm1, cm2, m1, m2))
+    root, k_list = step_passes.scores_root(*ins)
+    want_root, want = _composed_scores_root(*ins)
+    assert root.tolist() == [ts[0] if ts else 0 for ts in twins]
+    assert torch.equal(root, want_root)
+    for k, ts in enumerate(twins):
+        if ts:
+            assert k_list[k, list(ts)].eq(0).all()
+    torch.testing.assert_close(k_list, want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [37, 487, 964])
+def test_cuda_scores_root_element_alone_as_in_batch(cuda_device, w):
+    """An element's scores and root are the same bits from a launch on it
+    alone as from a batch of 5, at its place in the batch."""
+    from repro_torch.kernels import step_passes
+
+    ins = _score_moments(5, w, seed=w)
+    root, k_list = step_passes.scores_root(*ins)
+    for k in (0, 3, 4):
+        r1, k1 = step_passes.scores_root(*(t[k].contiguous() for t in ins))
+        assert torch.equal(r1, root[k])
+        assert torch.equal(k1, k_list[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 487])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cuda_ordering_with_the_score_kernel_equals_composed(
+        cuda_device, monkeypatch, d, seed):
+    """``masked_order_impl`` on (3999, d) takes the score kernel at each of
+    its d - 1 steps and gives the order it gives with the composed scores
+    patched in."""
+    from repro_torch.core import ordering
+    from repro_torch.kernels import step_passes
+
+    gt = simulate_lingam(m=3999, d=d, seed=seed)
+    x = torch.as_tensor(np.ascontiguousarray(gt.data, np.float32),
+                        device=cuda_device)
+    before = step_passes.scores_launches
+    got = ordering.masked_order_impl(x, ordering.LocalReducer())
+    assert step_passes.scores_launches == before + d - 1
+    monkeypatch.setattr(step_passes, "scores_root", _composed_scores_root)
+    want = ordering.masked_order_impl(x, ordering.LocalReducer())
+    assert torch.equal(got, want)
+    assert sorted(got.tolist()) == list(range(d))
+
+
+@pytest.mark.gpu
+def test_cuda_scores_root_rejects_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels import step_passes
+
+    cm1, cm2, m1, m2 = _score_moments(2, 8, seed=0)
+    with pytest.raises(ValueError, match="pair moments"):
+        step_passes.scores_root(cm1, cm2, m1[:, :7], m2)
+    with pytest.raises(ValueError, match="pair moments"):
+        step_passes.scores_root(cm1[None], cm2[None], m1[None], m2[None])
+    with pytest.raises(TypeError):
+        step_passes.scores_root(cm1, cm2, m1.double(), m2)
+    with pytest.raises(TypeError):
+        step_passes.scores_root(cm1, cm2, m1.mT, m2)
 
 
 @pytest.mark.gpu

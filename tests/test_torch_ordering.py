@@ -9,7 +9,11 @@ against a plain Python list of labels, its order against the mesh plan's
 composed schedules (``full_width_order_impl``, ``compact_order_impl``), and
 the ``order.pair_terms`` counter against the pair count of each schedule:
 d^2 (d - 1) for the masked scan, the stage widths' sum for the staged
-one, (d + 1) d (d - 1) / 3 for the loop compacted at every step.
+one, (d + 1) d (d - 1) / 3 for the loop compacted at every step. The
+step's scores and root: ``step_passes.scores_root`` on a CPU tensor is
+``ordering.step_scores`` and ``torch.argmax``, the first of tied maxima
+winning; the CPU's step keeps that composed path (``order.scores`` spans
+with ``path="composed"``, no ``order.scores_kernel`` count).
 """
 
 import numpy as np
@@ -17,8 +21,9 @@ import pytest
 import torch
 
 from repro_torch import obs
-from repro_torch.core import api, ordering
+from repro_torch.core import api, measures, ordering
 from repro_torch.data.simulate import simulate_lingam
+from repro_torch.kernels import step_passes
 from repro_torch.obs import metrics
 
 torch.set_num_threads(1)
@@ -41,10 +46,38 @@ def _pair_terms():
     return metrics.snapshot()["counters"].get("order.pair_terms", 0.0)
 
 
-def _span_names(spans):
+def _spans(spans):
     for sp in spans:
+        yield sp
+        yield from _spans(sp.children)
+
+
+def _span_names(spans):
+    for sp in _spans(spans):
         yield sp.name
-        yield from _span_names(sp.children)
+
+
+def _tied_moments(twins, w, seed=0):
+    """(cm1, cm2, M1, M2), float32 (b, w) and (b, w, w), one element per
+    entry of ``twins``: element k's columns ``twins[k]`` score 0, the best
+    score, and every other column below it (their residuals on the twins
+    have the largest entropy, and the twins' residuals on them a small
+    one); an empty entry makes every column alike, so all scores tie."""
+    g = measures.GAMMA
+    rng = np.random.default_rng(seed)
+    b = len(twins)
+    m1 = g + 0.05 * rng.random((b, w, w))
+    m2 = 0.1 * rng.standard_normal((b, w, w))
+    cm1, cm2 = np.full((b, w), g + 0.02), np.full((b, w), 0.05)
+    for k, ts in enumerate(twins):
+        if not ts:
+            m1[k], m2[k] = g + 0.03, 0.07
+        for t in ts:
+            m1[k, :, t], m2[k, :, t] = g + 0.5, 0.3
+        for t in ts:
+            m1[k, t, :], m2[k, t, :] = g, 0.0
+    return tuple(torch.tensor(a, dtype=torch.float32)
+                 for a in (cm1, cm2, m1, m2))
 
 
 def test_survivors_keep_a_list_of_labels():
@@ -180,3 +213,62 @@ def test_pair_terms_counter_on_the_compacted_loop(d):
     ordering.masked_order_impl(x, ordering.LocalReducer())
     assert _pair_terms() == (d + 1) * d * (d - 1) // 3
     assert _pair_terms() == sum(w * (w - 1) for w in range(2, d + 1))
+
+
+@pytest.mark.parametrize("twins", [[(2, 5)], [(2, 5), (0, 6), (), (3, 4)]])
+def test_scores_root_plain_version_is_step_scores_and_argmax(twins):
+    """On a CPU tensor ``scores_root`` is ``step_scores`` with every column
+    active and ``torch.argmax``, unbatched and for a batch: tied best
+    columns go to the first of them, and an element whose scores all tie
+    to column 0; no kernel launch is counted."""
+    cm1, cm2, m1, m2 = _tied_moments(twins, 7)
+    if len(twins) == 1:
+        cm1, cm2, m1, m2 = cm1[0], cm2[0], m1[0], m2[0]
+    before = step_passes.scores_launches
+    root, k_list = step_passes.scores_root(cm1, cm2, m1, m2)
+    want = ordering.step_scores(cm1, cm2, m1, m2,
+                                torch.ones(cm1.shape, dtype=torch.bool))
+    assert torch.equal(k_list, want)
+    assert torch.equal(root, torch.argmax(want, dim=-1))
+    assert root.dtype == torch.int64 and root.shape == cm1.shape[:-1]
+    assert root.reshape(-1).tolist() == [ts[0] if ts else 0 for ts in twins]
+    for k, ts in enumerate(twins):
+        scores = k_list.reshape(len(twins), -1)[k]
+        if ts:
+            assert scores[list(ts)].eq(0).all()
+            others = [c for c in range(7) if c not in ts]
+            assert scores[others].lt(0).all()
+        else:
+            assert scores.eq(scores[0]).all()
+    assert step_passes.scores_launches == before
+
+
+def test_step_root_on_the_cpu_keeps_the_composed_path():
+    """The compacting loop on a CPU tensor scores every step with the
+    composed function: each ``order.scores`` span says
+    ``path="composed"``, ``order.scores_kernel`` counts nothing, and the
+    step's root is the argmax of ``step_scores``."""
+    d = 6
+    x = _x(500, d, seed=3)
+    red = ordering.LocalReducer()
+    before = step_passes.scores_launches
+    obs.enable()
+    order = ordering.masked_order_impl(x, red)
+    st, root = ordering._step_root(x, None, red)
+    spans = [sp for sp in _spans(obs.roots()) if sp.name == "order.scores"]
+    counters = metrics.snapshot()["counters"]
+    obs.disable()
+    assert [sp.attrs.get("path") for sp in spans] == ["composed"] * d
+    assert "order.scores_kernel" not in counters
+    assert step_passes.scores_launches == before
+    m1, m2 = red.moment_rows(st.x_std, st.c)
+    want = ordering.step_scores(*red.col_moments(st.x_std), m1, m2,
+                                torch.ones(d, dtype=torch.bool))
+    assert int(root) == int(torch.argmax(want)) == int(order[0])
+
+
+def test_scores_root_raises_on_a_device_it_does_not_take():
+    """Off the CPU and the card the wrapper raises: no quiet fallback."""
+    cm1, cm2, m1, m2 = (t.to("meta") for t in _tied_moments([(1, 2)], 4))
+    with pytest.raises(ValueError, match="no score kernel for meta"):
+        step_passes.scores_root(cm1, cm2, m1, m2)
