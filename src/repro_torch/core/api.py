@@ -67,8 +67,7 @@ class Partition:
 
     ``gather_finish`` picks the adjacency/diagnostics tail:
       * ``True`` (default) -- reassemble the data on every rank and
-        reduce the covariance there: the local plan's arithmetic, with
-        the OLS row solves tiled over the pair axis;
+        run the local plan's finish there, replicated;
       * ``False`` -- the fully sharded finish: covariance all_reduced
         over the sample shards, diagnostics on local rows. Per-rank
         memory stays O(m_local * d + d^2), at fp32 reduction-order

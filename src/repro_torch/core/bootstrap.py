@@ -105,12 +105,15 @@ def vmap_peak_bytes(n_sampling: int, m: int, d: int) -> int:
     """Model of the vmap bootstrap's peak device memory: kernel B1's two
     (n_sampling, n_z, d, d) float32 partial-sum buffers at full width,
     the float32 resample stack and its float64 copy (the ordering's
-    float64 gram), and one fit's (d, d, d) float32 pruning system (the
-    pruning runs per resample). It counts these as if all were live at
-    once, so it errs high: the float64 copy is freed before B1 runs."""
+    float64 gram), and one fit's float64 pruning (the pruning runs per
+    resample): its resample's float64 copy and centered copy, and six
+    (d, d) float64 matrices about its one factor. It counts these as if
+    all were live at once, so it errs high: the float64 copy is freed
+    before B1 runs."""
     n_z = pairwise_stats.slab_plan(m).n_z
     stack = 4 * n_sampling * m * d
-    return 2 * 4 * n_sampling * n_z * d * d + 3 * stack + 4 * d ** 3
+    return (2 * 4 * n_sampling * n_z * d * d + 3 * stack + 16 * m * d
+            + 48 * d * d)
 
 
 def _auto_strategy(n_sampling, m, d, device, max_vmap_bytes) -> str:

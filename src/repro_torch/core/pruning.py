@@ -1,16 +1,23 @@
 """Adjacency estimation given a causal order.
 
 After DirectLiNGAM establishes the order, the connection strengths are
-estimated by regressing each variable on its predecessors: a masked
-batched OLS (one batched linear solve over all variables) plus an
-optional adaptive-lasso refinement (FISTA on the weighted-L1 problem).
+estimated by regressing each variable on its predecessors. The local
+plan's least squares (OLS) takes every variable's weights at once from
+one float64 Cholesky factor of the correlation matrix in causal order
+(:func:`_ols_in_causal_order`), from a covariance of float64 sample
+sums; nothing of size d^3 is built (at d = 2,048 the factor is one
+34 MB (d, d) float64 matrix). The optional adaptive lasso refines the
+same weights by FISTA on the weighted-L1 problem. The mesh plan's
+sharded finish alone still solves identity-augmented stacks over its
+pair-axis row tiles (:func:`ols_rows`).
 
 With telemetry on, each least-squares solve is a ``prune.ols`` span
-(attributes ``d``, ``rows``, ``system_bytes``: the bytes of the systems
-it solves) and the FISTA sweeps a ``prune.lasso`` span (``iterations``,
-``rows``, ``system_bytes``), both inside the fit's ``fit.pruning``; the
-counters ``prune.systems`` and ``prune.lasso_iterations`` add up the
-systems solved and the sweeps run.
+(attributes ``d``, ``rows``, ``estimator``: ``"factor"`` or
+``"stacked"``, and ``system_bytes``: the bytes of the matrix factored or
+of the stacked systems solved) and the FISTA sweeps a ``prune.lasso``
+span (``iterations``, ``rows``, ``system_bytes``), both inside the fit's
+``fit.pruning``; the counters ``prune.systems`` and
+``prune.lasso_iterations`` add up the rows solved and the sweeps run.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ def pred_mask(order):
 
 
 def ols_rows(cov, mask_rows, cov_rows):
-    """Masked OLS solves for a tile of variables.
+    """Masked OLS solves for a tile of variables: the mesh plan's sharded
+    finish, each rank solving its pair-axis row tile.
 
     Args:
       cov:       (d, d) covariance of the centered data.
@@ -43,14 +51,13 @@ def ols_rows(cov, mask_rows, cov_rows):
       identity system and come back zero.
 
     The identity-augmented systems are stacked into one (tile, d, d)
-    batch for a single batched solve: 4 MB at d = 100, 3.6 GB at d = 964
-    in float32, where the stack and its temporaries take 11.9 GB of an
-    H100's 80 (65,164 x 964, measured). At d ~ 2,000 a stack is 32 GB and
-    the rows need tiles.
+    batch for a single batched solve, tile x d^2 entries of ``cov``'s
+    dtype: a rank's tile at d = 2,048 over 4 pair ranks is 8.6 GB in
+    float32 before the solve's temporaries.
     """
     rows, d = mask_rows.shape
     obs_metrics.inc("prune.systems", rows)
-    with obs_trace.span("prune.ols", d=d, rows=rows,
+    with obs_trace.span("prune.ols", d=d, rows=rows, estimator="stacked",
                         system_bytes=rows * d * d * cov.element_size()):
         mm = mask_rows[:, :, None] & mask_rows[:, None, :]
         diag = torch.where(mask_rows, EPS, 1.0)
@@ -62,18 +69,39 @@ def ols_rows(cov, mask_rows, cov_rows):
 
 
 def ols_from_cov(cov, order):
-    """Masked OLS adjacency from a precomputed (ddof=0) covariance."""
-    mask = pred_mask(order)
-    return ols_rows(cov, mask, cov)
+    """OLS adjacency from a precomputed (ddof=0) covariance, in float64
+    (:func:`_ols_in_causal_order`); B comes back in ``cov``'s dtype."""
+    return _to_raw(_ols_in_causal_order, cov.double(), order).to(cov.dtype)
 
 
 def ols_adjacency(x, order):
-    """Batched masked OLS: B[i, j] = coefficient of x_j in the regression
-    of x_i on its causal predecessors."""
-    m = x.shape[0]
-    xc = x - x.mean(dim=0, keepdim=True)
-    cov = (xc.T @ xc) / m
-    return ols_from_cov(cov, order)
+    """OLS adjacency: B[i, j] = coefficient of x_j in the least-squares
+    regression of x_i on its causal predecessors. The covariance takes
+    float64 sample sums, as the adaptive lasso's; B comes back in ``x``'s
+    dtype."""
+    return _to_raw(_ols_in_causal_order, _cov64(x), order).to(x.dtype)
+
+
+def _cov64(x):
+    """The (ddof=0) covariance of ``x`` (m, d) from float64 sums."""
+    xd = x.double()
+    xc = xd - xd.mean(dim=0, keepdim=True)
+    return (xc.T @ xc) / x.shape[0]
+
+
+def _to_raw(estimate, cov, order):
+    """Run ``estimate`` on the correlation in causal order, from the
+    float64 covariance ``cov``, and take its (d, d) result in causal
+    positions back to the variables' own and to raw units."""
+    sd = torch.clamp(torch.sqrt(torch.clamp(torch.diagonal(cov), min=0.0)),
+                     min=1e-12)
+    perm = torch.as_tensor(order, device=cov.device)
+    corr = (cov / (sd[:, None] * sd[None, :]))[perm][:, perm]
+    corr.diagonal().fill_(1.0)  # a constant variable: an identity row
+    b_pos = estimate(corr)
+    b_std = torch.empty_like(b_pos)
+    b_std[perm[:, None], perm[None, :]] = b_pos
+    return b_std * (sd[:, None] / sd[None, :])
 
 
 def _soft_threshold(z, t):
@@ -89,10 +117,7 @@ def adaptive_lasso_adjacency(x, order, lam=0.01, gamma=1.0, n_steps=400):
     covariance takes float64 sample sums, and the estimator runs in
     float64 (see :func:`_adaptive_lasso`); B comes back in ``x``'s dtype.
     """
-    m = x.shape[0]
-    xd = x.double()
-    xc = xd - xd.mean(dim=0, keepdim=True)
-    return _adaptive_lasso((xc.T @ xc) / m, order, lam, gamma,
+    return _adaptive_lasso(_cov64(x), order, lam, gamma,
                            n_steps).to(x.dtype)
 
 
@@ -109,18 +134,23 @@ def _ols_in_causal_order(corr):
     causal order. With corr = L L^T, the leading block of L factors each
     position's predecessors, and I - B = diag(L) L^-1.
 
-    Exactly collinear genes (a duplicated column) make the correlation
-    singular. Where the factor fails for it, it is taken with a ridge of
-    :data:`EPS` on the diagonal, which picks the least-squares weights of
-    least norm as the ridge goes to zero.
+    It is the local plan's OLS, and the adaptive lasso's weights.
+    Exactly collinear variables (a duplicated column) make the
+    correlation singular: the factor fails, or rounding leaves a position
+    less than :data:`EPS` of its variance unexplained by its predecessors
+    and the weights after it split arbitrarily between the twins. Then it
+    is taken with a ridge of :data:`EPS` on the diagonal, which picks the
+    least-squares weights of least norm as the ridge goes to zero. (A
+    gene screen's deepest genes keep ~2e-7 of their variance.)
     """
     d = corr.shape[0]
     obs_metrics.inc("prune.systems", d)
-    with obs_trace.span("prune.ols", d=d, rows=d,
+    with obs_trace.span("prune.ols", d=d, rows=d, estimator="factor",
                         system_bytes=d * d * corr.element_size()):
         eye = torch.eye(d, dtype=corr.dtype, device=corr.device)
         factor, info = torch.linalg.cholesky_ex(corr)
-        if int(info):
+        unexplained = torch.diagonal(factor).square().min()
+        if bool((info != 0) | (unexplained < EPS)):  # one host sync
             factor = torch.linalg.cholesky(corr + EPS * eye)
         inv = torch.linalg.solve_triangular(factor, eye, upper=False)
         return torch.tril(eye - torch.diagonal(factor)[:, None] * inv, -1)
@@ -170,17 +200,12 @@ def _adaptive_lasso(cov, order, lam, gamma, n_steps):
     leave errors in correlation units that the rescale to raw units
     multiplies by the ratio of the standard deviations.
     """
-    sd = torch.clamp(torch.sqrt(torch.clamp(torch.diagonal(cov), min=0.0)),
-                     min=1e-12)
-    perm = torch.as_tensor(order, device=cov.device)
-    corr = (cov / (sd[:, None] * sd[None, :]))[perm][:, perm]
-    corr.diagonal().fill_(1.0)  # a constant gene: an identity row
-    b_ols = _ols_in_causal_order(corr)
-    w = 1.0 / torch.clamp(torch.abs(b_ols), min=1e-3) ** gamma
-    b_pos = _fista_in_causal_order(corr, w, lam, n_steps)
-    b_std = torch.empty_like(b_pos)
-    b_std[perm[:, None], perm[None, :]] = b_pos
-    return b_std * (sd[:, None] / sd[None, :])
+    def estimate(corr):
+        b_ols = _ols_in_causal_order(corr)
+        w = 1.0 / torch.clamp(torch.abs(b_ols), min=1e-3) ** gamma
+        return _fista_in_causal_order(corr, w, lam, n_steps)
+
+    return _to_raw(estimate, cov, order)
 
 
 def apply_threshold(b, threshold: float):

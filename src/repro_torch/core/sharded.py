@@ -30,12 +30,13 @@ Collectives per ordering step:
 :func:`fit_sharded` runs the whole fit: the ordering (with staged
 compaction when configured: buffer widths stay multiples of the pair-axis
 size, every rank gathers the same surviving columns), then the adjacency
-with the per-variable OLS solves tiled over the pair axis, and the
-residual diagnostics. The finish has two modes
+and the residual diagnostics. The finish has two modes
 (``Partition.gather_finish``): the default reassembles the data on every
-rank and reduces the covariance there (the local plan's arithmetic);
-``gather_finish=False`` keeps the finish sharded (all_reduced covariance,
-local-row diagnostics), so per-rank memory stays O(m_local * d + d^2).
+rank and runs the local plan's finish there (one float64 factor for
+OLS); ``gather_finish=False`` keeps the finish sharded (all_reduced
+covariance, the per-variable OLS solves tiled over the pair axis,
+local-row diagnostics), so per-rank memory stays O(m_local * d + d^2)
+for the data.
 
 Variables are padded to a multiple of the pair-axis size and samples to
 a multiple of (sample shards x ``chunk``); padded columns enter
@@ -242,23 +243,12 @@ def _pair_row_tiles(reducer: MeshReducer, order, d: int):
     return rows_of(pruning.pred_mask(order)), rows_of, gather
 
 
-def _finish_sharded(x, order, config: FitConfig, reducer: MeshReducer):
+def _finish_sharded(x, order, config: FitConfig):
     """The gathered finish (``gather_finish=True``) on the reassembled
-    (m, d) data: :func:`repro_torch.core.api.finish_fit`'s arithmetic,
-    with each variable's OLS solve on the rank owning its row tile (the
-    shared ``pruning.ols_rows``). The adaptive lasso runs replicated
-    through the shared pruning entry, as in the reference."""
-    if config.prune_method != "ols":
-        res = api.finish_fit(x, order, config)
-        return res.adjacency, res.resid_var
-    m, d = x.shape
-    mask_rows, rows_of, gather = _pair_row_tiles(reducer, order, d)
-    xc = x - x.mean(dim=0, keepdim=True)
-    cov = (xc.T @ xc) / m
-    b = gather(pruning.ols_rows(cov, mask_rows, rows_of(cov)))
-    b = pruning.apply_threshold(b, config.prune_threshold)
-    resid = xc - xc @ b.T
-    return b, (resid * resid).mean(dim=0)
+    (m, d) data: :func:`repro_torch.core.api.finish_fit` itself,
+    replicated on every rank, so the adjacency is the local plan's."""
+    res = api.finish_fit(x, order, config)
+    return res.adjacency, res.resid_var
 
 
 def _finish_sharded_scaled(x_local, order, config: FitConfig,
@@ -325,7 +315,7 @@ def _fit_shard(x_local, mesh, m: int, d: int, config: FitConfig):
     order = _order_sharded(x_local, d, config, reducer)
     if part.gather_finish:
         x_full = reducer.gather_samples(x_local)[:m, :d].contiguous()
-        b, resid_var = _finish_sharded(x_full, order, config, reducer)
+        b, resid_var = _finish_sharded(x_full, order, config)
     else:
         b, resid_var = _finish_sharded_scaled(x_local, order, config,
                                               reducer, d)

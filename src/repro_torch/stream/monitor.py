@@ -39,6 +39,11 @@ by :func:`repro_torch.infer.rca.drift_root_candidates`.
 adaptive refit cadence and
 :class:`repro_torch.serve.engine.CausalDiscoveryEngine` surfaces them
 through ``poll_alerts`` and flush deltas.
+
+With telemetry on, each scoring is a ``stream.monitor`` span (attributes
+``d``, ``sessions``: the chunks scored at once, ``alerts``: the alerts
+they fired) around the device statistics, their copy to the host and the
+CUSUM and alert pass, candidate roots included.
 """
 
 from __future__ import annotations
@@ -272,11 +277,15 @@ class GraphHealthMonitor:
         (:func:`score_chunks_many` scores many monitors' chunks at once)."""
         if self.graph is None:
             raise RuntimeError("monitor not armed: no served graph yet")
-        host = torch.cat([chunk_state.count.reshape(1).float(),
-                          torch.stack(self._stats(chunk_state)).reshape(-1)]
-                         ).cpu().numpy()
-        return self._absorb(float(host[0]), host[1:].reshape(3, self.d),
-                            chunk_index, refit_index)
+        with obs_trace.span("stream.monitor", d=self.d, sessions=1) as sp:
+            host = torch.cat(
+                [chunk_state.count.reshape(1).float(),
+                 torch.stack(self._stats(chunk_state)).reshape(-1)]
+            ).cpu().numpy()
+            alerts = self._absorb(float(host[0]), host[1:].reshape(3, self.d),
+                                  chunk_index, refit_index)
+            sp.set(alerts=len(alerts))
+        return alerts
 
     def _absorb(self, count: float, z: np.ndarray, chunk_index: int,
                 refit_index: int) -> List[DriftAlert]:
@@ -355,23 +364,27 @@ def score_chunks_many(
     def stack(xs):
         return torch.stack(list(xs))
 
-    zs = chunk_drift_stats(
-        stack(s.count for s in chunk_states),
-        stack(s.mean for s in chunk_states),
-        stack(s.m2 for s in chunk_states),
-        stack(g.a for g in graphs),
-        stack(g.intercept for g in graphs),
-        stack(g.b0 for g in graphs),
-        stack(g.resid_var for g in graphs),
-    )
-    counts = stack(s.count.float() for s in chunk_states)
-    host = torch.cat([counts[:, None], torch.stack(zs, dim=1).flatten(1)],
-                     dim=1).cpu().numpy()
-    out: List[List[DriftAlert]] = []
-    for i, mon in enumerate(monitors):
-        idx = chunk_indices[i] if chunk_indices is not None else 0
-        out.append(mon._absorb(float(host[i, 0]),
-                               host[i, 1:].reshape(3, mon.d), idx, 0))
+    with obs_trace.span("stream.monitor", d=monitors[0].d,
+                        sessions=len(monitors)) as sp:
+        zs = chunk_drift_stats(
+            stack(s.count for s in chunk_states),
+            stack(s.mean for s in chunk_states),
+            stack(s.m2 for s in chunk_states),
+            stack(g.a for g in graphs),
+            stack(g.intercept for g in graphs),
+            stack(g.b0 for g in graphs),
+            stack(g.resid_var for g in graphs),
+        )
+        counts = stack(s.count.float() for s in chunk_states)
+        host = torch.cat([counts[:, None],
+                          torch.stack(zs, dim=1).flatten(1)],
+                         dim=1).cpu().numpy()
+        out: List[List[DriftAlert]] = []
+        for i, mon in enumerate(monitors):
+            idx = chunk_indices[i] if chunk_indices is not None else 0
+            out.append(mon._absorb(float(host[i, 0]),
+                                   host[i, 1:].reshape(3, mon.d), idx, 0))
+        sp.set(alerts=sum(len(a) for a in out))
     return out
 
 

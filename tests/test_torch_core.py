@@ -262,6 +262,75 @@ def test_ols_matches_sequential_baseline():
                                atol=1e-4)
 
 
+def _lstsq_rows(x, order):
+    """Each variable's float64 ``np.linalg.lstsq`` on its predecessors in
+    ``order``, row by row, on the centered data (least norm where the
+    predecessors are collinear)."""
+    xc = np.asarray(x, dtype=np.float64)
+    xc = xc - xc.mean(axis=0)
+    b = np.zeros((xc.shape[1],) * 2)
+    for k, i in enumerate(order):
+        pred = list(order[:k])
+        if pred:
+            b[i, pred] = np.linalg.lstsq(xc[:, pred], xc[:, i],
+                                         rcond=None)[0]
+    return b
+
+
+@pytest.mark.parametrize("path", ["data", "from_cov"])
+@pytest.mark.parametrize("d,seed", [(12, 0), (48, 1), (96, 2)])
+def test_ols_factor_matches_row_by_row_lstsq(d, seed, path):
+    """The OLS adjacency from one float64 factor in causal order, from
+    float32 data or from a covariance, is each row's float64 least
+    squares on its predecessors; the root's row is exactly zero and B
+    comes back in the input's dtype."""
+    gt = simulate_lingam(m=20 * d, d=d, seed=seed)
+    order = np.asarray(gt.order)
+    x = torch.from_numpy(np.ascontiguousarray(gt.data, np.float32))
+    if path == "data":
+        b = pruning.ols_adjacency(x, torch.from_numpy(order))
+    else:
+        xd = x.double() - x.double().mean(0)
+        b = pruning.ols_from_cov(xd.T @ xd / x.shape[0],
+                                 torch.from_numpy(order)).float()
+    want = _lstsq_rows(gt.data.astype(np.float32), order)
+    assert b.dtype == torch.float32
+    assert b[order[0]].abs().max() == 0.0
+    np.testing.assert_allclose(b.double().numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def test_ols_factor_takes_a_duplicated_column():
+    """A duplicated column makes the correlation singular: the factor
+    takes the :data:`pruning.EPS` ridge, the copy's row is its twin's unit
+    weight, and the rows after both split their weight as the least-norm
+    least squares does."""
+    gt = simulate_lingam(m=3000, d=9, seed=4)
+    x = np.concatenate([gt.data, gt.data[:, 3:4]], axis=1)
+    order = list(np.asarray(gt.order))
+    order.insert(order.index(3) + 1, 9)
+    b = pruning.ols_adjacency(torch.from_numpy(x), torch.tensor(order))
+    assert torch.isfinite(b).all()
+    np.testing.assert_allclose(b.double().numpy(), _lstsq_rows(x, order),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(b[9].double().numpy(), np.eye(10)[3],
+                               atol=1e-6)
+
+
+def test_batched_fit_prunes_each_element_by_its_own_least_squares():
+    """A batch's pruning runs per element: each adjacency is its own
+    data's row-by-row least squares for its own order."""
+    from repro_torch.core import batched
+
+    xs = np.stack([simulate_lingam(m=1500, d=10, seed=s).data
+                   for s in (5, 6, 7)]).astype(np.float32)
+    res = batched.fit_many(torch.from_numpy(xs))
+    for xk, ok, bk in zip(xs, res.order.numpy(), res.adjacency.numpy()):
+        want = _lstsq_rows(xk, list(ok))
+        np.testing.assert_allclose(bk, want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("method", ["ols", "adaptive_lasso"])
 def test_fit_from_stats_matches_reference(method):
     gt = simulate_lingam(m=2000, d=7, seed=8)

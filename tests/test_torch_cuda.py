@@ -1177,3 +1177,36 @@ def test_cuda_step_passes_reject_what_they_cannot_take(cuda_device):
         st1 = step_passes.standardize(x1)
         step_passes.residualize(x1, root, st1[5], st1[3], labels[:1],
                                 order, 0)
+
+
+@pytest.mark.gpu
+def test_cuda_wide_fit_builds_nothing_of_size_d_cubed(cuda_device):
+    """``DirectLiNGAM().fit`` at (8,192, 2,048) through the facade's
+    defaults: the OLS pruning factors one float64 (d, d) correlation and
+    takes under 1 GB alone (one float32 d^3 stack would be 34 GB), and
+    the whole fit stays within 1 GB of B1's split partial sums at full
+    width (2 x 64 splits x d^2 float32, 2.1 GB at 8,192 rows)."""
+    from repro_torch.core import DirectLiNGAM, pruning
+
+    gt = simulate_lingam(m=8192, d=2048, edge_prob=0.0244, seed=1)
+    x = np.ascontiguousarray(gt.data, dtype=np.float32)
+
+    def peak_of(fn):
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        base = torch.cuda.memory_allocated(cuda_device)
+        out = fn()
+        torch.cuda.synchronize(cuda_device)
+        return out, torch.cuda.max_memory_allocated(cuda_device) - base
+
+    model, fit_peak = peak_of(lambda: DirectLiNGAM(device="cuda").fit(x))
+    assert sorted(model.causal_order_.tolist()) == list(range(2048))
+    assert np.isfinite(model.adjacency_).all()
+    assert model.adjacency_[model.causal_order_[0]].tolist() == [0.0] * 2048
+    partials = 2 * pairwise_stats.slab_plan(8192).n_z * 2048 ** 2 * 4
+    assert fit_peak < partials + (1 << 30), (fit_peak, partials)
+    xt = torch.as_tensor(x, device=cuda_device)
+    order = torch.as_tensor(model.causal_order_, device=cuda_device)
+    b, prune_peak = peak_of(lambda: pruning.ols_adjacency(xt, order))
+    assert prune_peak < 1 << 30, prune_peak
+    np.testing.assert_array_equal(b.cpu().numpy(), model.adjacency_)

@@ -582,9 +582,9 @@ def test_var_fit_records_the_var_estimate():
 @pytest.mark.parametrize("method", ["ols", "adaptive_lasso"])
 def test_pruning_records_its_solve_and_sweeps(method):
     """Inside ``fit.pruning``, the least-squares solve is one
-    ``prune.ols`` span (d, the rows solved, the bytes of its systems: a
-    float32 (rows, d, d) stack for OLS, the float64 (d, d) correlation the
-    adaptive lasso factors) and the adaptive lasso's FISTA sweeps one
+    ``prune.ols`` span (d, the rows solved, the estimator: the one float64
+    factor for both methods, and the bytes of the (d, d) correlation it
+    factors) and the adaptive lasso's FISTA sweeps one
     ``prune.lasso`` span (iterations, rows, the correlation's bytes); the
     counters add up the systems and the iterations. Off, neither is
     recorded."""
@@ -603,8 +603,8 @@ def test_pruning_records_its_solve_and_sweeps(method):
     assert names == (["prune.ols", "prune.lasso"] if lasso
                      else ["prune.ols"])
     assert pruning_span.children[0].attrs == {
-        "d": d, "rows": d,
-        "system_bytes": d * d * 8 if lasso else d * d * d * 4}
+        "d": d, "rows": d, "estimator": "factor",
+        "system_bytes": d * d * 8}
     counters = metrics.snapshot()["counters"]
     assert counters["prune.systems"] == d
     if lasso:
