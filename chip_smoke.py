@@ -4,10 +4,14 @@
     python3 chip_smoke.py [--out-dir DIR]
     python3 chip_smoke.py --offpath [--tree DIR] [--label L] [--fits N]
                           [--refits N] [--swap-from DIR]
+    python3 chip_smoke.py --b1-probe [--tree DIR] [--label L]
 
 The second form runs no check: it times only the telemetry-off
 ``lingam-1m-100`` fits and stream refits of the port in ``--tree`` (see
-:func:`offpath_times`), to compare two commits on one card.
+:func:`offpath_times`), to compare two commits on one card. The third
+times kernel B1 alone, launch by launch, at the cells' shapes, with a
+digest of its sums and its instances' registers (see :func:`b1_probe`);
+run it on two trees in one call to compare them.
 
 Imports only ``repro_torch`` (from ``src/``), the port's benchmarks
 (``benchmarks/torch_*.py``), ``torch``, numpy and scipy. Phases, any
@@ -240,6 +244,9 @@ def ptxas_report(log: str):
     names = (("pair_partials_kernelILi4E", "pair_partials<4>"),
              ("pair_partials_kernelILi2E", "pair_partials<2>"),
              ("pair_partials_kernelILi1E", "pair_partials<1>"),
+             ("pair_partials_span_kernelILi4E", "pair_partials_span<4>"),
+             ("pair_partials_span_kernelILi2E", "pair_partials_span<2>"),
+             ("pair_partials_span_kernelILi1E", "pair_partials_span<1>"),
              ("reduce_slabs_kernel", "reduce_slabs"),
              ("fused_partials_kernelIfE", "fused_partials<float>"),
              ("fused_partials_kernelI13__nv_bfloat16E",
@@ -705,7 +712,7 @@ def paper_experiments(dev, cuda_ms, peaks):
         ("golem", {"linalg_matrix_exp", "linalg_slogdet", "matmul"},
          lambda: golem.golem_fit(gt_c.data, n_steps=1000)),
         ("ica_lingam", {"linalg_eigh", "tanh", "matmul",
-                        "linalg_solve_ex"},
+                        "linalg_cholesky_ex"},
          lambda: ica_lingam.ICALiNGAM(n_steps=200, prune_threshold=0.1)
          .fit(gt_c.data).adjacency_),
     ):
@@ -985,6 +992,107 @@ def offpath_times(tree, label, n_fits, n_refits, swap_from=None):
             ("fit_none_s", fits["none"]), ("fit_staged_s", fits["staged"]),
             ("refit_s", refits), ("refit_cpu_s", refit_cpu))},
     }), flush=True)
+    return 0
+
+
+# B1's shapes in the kernel table: (8,192, w) across the staging boundary
+# (w = 512 stages whole rows, w > 512 spans at T = 4) up to the wide
+# cell's full width, the gene cell's first step, cell 2's step, the
+# bootstrap's batch and cell 1's step.
+B1_PROBE_SHAPES = ((1, 8192, 512), (1, 8192, 513), (1, 8192, 768),
+                   (1, 8192, 1024), (1, 8192, 2048), (1, 65_164, 964),
+                   (1, 4000, 487), (32, 4000, 487), (1, 1_000_000, 100))
+# Fits whose B1 launches are counted by staging (telemetry on): the wide
+# and gene cells' widths, and cell 2's, at 1,024 rows, where the pair
+# block is 4 x 4 from width 260 up, as at the cells' own rows.
+B1_PROBE_FITS = ((1024, 2048), (1024, 964), (1024, 487))
+
+
+def b1_probe(tree, label):
+    """``--b1-probe``: kernel B1 of the port in ``tree`` alone. For each
+    of :data:`B1_PROBE_SHAPES`, standardized normal data drawn on the card
+    from a fixed seed: device ms a launch (CUDA events over launches
+    queued behind a device sleep, so the host drops out; median of 3
+    rounds), the bound (:func:`moment_bound_ms`), the pair block, the
+    staging, and a SHA-256 of the moments' bytes (two trees whose sums
+    agree bit for bit print the same digest). Then the B1 instances'
+    ptxas registers and spills, and the launches of each
+    :data:`B1_PROBE_FITS` fit by staging (``kernels.moments_staged``;
+    empty where the tree has no such counter). Prints one JSON line."""
+    import hashlib
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import torch
+
+    import repro_torch
+    from repro_torch.core import DirectLiNGAM
+    from repro_torch.data.simulate import simulate_lingam
+    from repro_torch.kernels import build, ops, pairwise_stats
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.obs import trace as obs_trace
+
+    if not os.path.abspath(repro_torch.__file__).startswith(tree + os.sep):
+        fail(f"imported {repro_torch.__file__}, not the port in {tree}")
+    dev = torch.device("cuda", 0)
+    peaks = obs_profile.device_peaks()
+    staged_columns = getattr(pairwise_stats, "staged_columns", None)
+    rows = []
+    for b, m, d in B1_PROBE_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(b * 1_000_003 + m + d)
+        x = torch.randn((b, m, d), generator=gen, device=dev)
+        x = torch.stack([ops.standardize(xk) for xk in x]).contiguous()
+        c = torch.stack([ops.correlation(xk) for xk in x]).contiguous()
+        if b == 1:
+            x, c = x[0], c[0]
+
+        def launch():
+            return pairwise_stats.pairwise_moments(x, c)
+
+        m1, m2 = launch()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(m1.cpu().numpy().tobytes()
+                                + m2.cpu().numpy().tobytes()).hexdigest()
+        del m1, m2
+        once = queued_ms(launch, 1)
+        reps = max(3, min(50, int(400 / max(once, 1e-3))))
+        ms = float(np.median([queued_ms(launch, reps) for _ in range(3)]))
+        tile = pairwise_stats._plan_tile("pairwise_moments", (m, d), x,
+                                         "cache", None)
+        bound = moment_bound_ms("pairwise_moments", (b, m, d), peaks)[0]
+        rows.append({
+            "shape": [b, m, d], "ms": ms, "reps": reps, "bound_ms": bound,
+            "pct_of_bound": 100.0 * bound / ms, "tile": tile,
+            "staging": (list(staged_columns(d, tile)) if staged_columns
+                        else None),
+            "sha256": digest})
+        print(f"b1_probe[{label}]: {rows[-1]}", flush=True)
+        del x, c
+        torch.cuda.empty_cache()
+    ptxas = {k: v for k, v in ptxas_report(
+        build.build_info["pairwise_moments"]["log"]).items()
+        if k.startswith("pair_partials")}
+    staged = {}
+    for m, d in B1_PROBE_FITS:
+        gt = simulate_lingam(m=m, d=d, edge_prob=min(0.5, 50 / d), seed=7)
+        data = np.ascontiguousarray(gt.data, dtype=np.float32)
+        DirectLiNGAM(device="cuda").fit(np.ascontiguousarray(data[:, :16]))
+        obs_metrics.reset()
+        obs_trace.enable()
+        try:
+            DirectLiNGAM(device="cuda").fit(data)
+            torch.cuda.synchronize()
+            snap = obs_metrics.snapshot()
+        finally:
+            obs_trace.disable()
+        staged[f"{m}x{d}"] = {
+            k: v for k, v in snap.get("counters", {}).items()
+            if k.startswith("kernels.moments_staged")}
+    print(json.dumps({"label": label, "tree": tree,
+                      "card": smi("name,power.limit"),
+                      "b1": rows, "ptxas": ptxas, "staged": staged}),
+          flush=True)
     return 0
 
 
@@ -1560,13 +1668,18 @@ def main() -> int:
                     help="time only the telemetry-off lingam-1m-100 fits "
                          "and stream refits (no checks, no other phase)")
     ap.add_argument("--tree", default=ROOT,
-                    help="with --offpath: the checkout whose src/ to time")
+                    help="with --offpath or --b1-probe: the checkout whose "
+                         "src/ to time")
     ap.add_argument("--label", default="",
-                    help="with --offpath: a label for the JSON line")
+                    help="with --offpath or --b1-probe: a label for the "
+                         "JSON line")
     ap.add_argument("--fits", type=int, default=3,
                     help="with --offpath: fits per compaction")
     ap.add_argument("--refits", type=int, default=30,
                     help="with --offpath: timed refits")
+    ap.add_argument("--b1-probe", action="store_true",
+                    help="time only kernel B1 at the cells' shapes (no "
+                         "checks, no other phase)")
     ap.add_argument("--swap-from", default=None,
                     help="with --offpath: also time the refit in turns with "
                          "the functions that differ in this checkout")
@@ -1580,6 +1693,8 @@ def main() -> int:
     if args.offpath:
         return offpath_times(args.tree, args.label, args.fits, args.refits,
                              args.swap_from)
+    if args.b1_probe:
+        return b1_probe(args.tree, args.label)
 
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1652,7 +1767,7 @@ def main() -> int:
         print(f"  ptxas: {entry}: {rep}")
     # A cached library keeps its nvcc log beside it, so the report is
     # whole on every run.
-    if len(ptxas) != 16 or any(len(r) != 3 for r in ptxas.values()):
+    if len(ptxas) != 19 or any(len(r) != 3 for r in ptxas.values()):
         fail(f"ptxas report incomplete: {ptxas}")
 
     # 2. kernel against its plain version on the card
@@ -3050,7 +3165,9 @@ def main() -> int:
         return {e: ptxas[e] for e in entries if e in ptxas}
 
     b12_ptxas = regs("pair_partials<4>", "pair_partials<2>",
-                     "pair_partials<1>", "reduce_slabs")
+                     "pair_partials<1>", "pair_partials_span<4>",
+                     "pair_partials_span<2>", "pair_partials_span<1>",
+                     "reduce_slabs")
     print(json.dumps({"kernels": [{
         "name": "pairwise_moments",
         "route": "cuda",

@@ -102,18 +102,20 @@ def _summarize(coefs: np.ndarray, threshold: float) -> BootstrapResult:
 
 
 def vmap_peak_bytes(n_sampling: int, m: int, d: int) -> int:
-    """Model of the vmap bootstrap's peak device memory: kernel B1's two
-    (n_sampling, n_z, d, d) float32 partial-sum buffers at full width,
-    the float32 resample stack and its float64 copy (the ordering's
-    float64 gram), and one fit's float64 pruning (the pruning runs per
-    resample): its resample's float64 copy and centered copy, and six
-    (d, d) float64 matrices about its one factor. It counts these as if
-    all were live at once, so it errs high: the float64 copy is freed
-    before B1 runs."""
+    """Model of the vmap bootstrap's peak device memory. The ordering
+    peaks in B1's launch, at full width: its two (n_sampling, n_z, d, d)
+    float32 partial-sum buffers, three float32 (n_sampling, m, d) stacks
+    (the resamples, the step's standardized and residualized data), and
+    five float32 (n_sampling, d, d) matrices' worth (the correlation,
+    B1's two sums, the float64 gram). One fit's float64 pruning (the
+    pruning runs per resample) adds its resample's float64 copy and
+    centered copy, and six (d, d) float64 matrices about its one factor.
+    It counts these as if all were live at once, so it errs high: the
+    pruning runs after the ordering."""
     n_z = pairwise_stats.slab_plan(m).n_z
     stack = 4 * n_sampling * m * d
-    return (2 * 4 * n_sampling * n_z * d * d + 3 * stack + 16 * m * d
-            + 48 * d * d)
+    return (2 * 4 * n_sampling * n_z * d * d + 3 * stack
+            + 5 * 4 * n_sampling * d * d + 16 * m * d + 48 * d * d)
 
 
 def _auto_strategy(n_sampling, m, d, device, max_vmap_bytes) -> str:

@@ -38,11 +38,19 @@ launch over a batch grid axis, the axis the TPU kernel gets under
 those of the launch on x_std[k] alone, bit for bit; a 2-D input is the
 batch of one.
 
+Each block of the kernel stages, a sample, either whole rows of X or
+only the columns its pair blocks read (:func:`staged_columns`: a span,
+where a row block holds more than ``THREADS`` pair blocks); the sums are
+the same bits either way.
+
 With telemetry on, each wrapper's computation (the launch on the card,
 the plain version on the CPU) is a ``kernels.moments`` span with the
 wrapper's ``op``, the ``shape`` (b, m, d), the ``rows`` of the tile and
-the pair-block ``tile`` (None on the CPU); the launch plan's decision
-before it is its sibling ``kernels.dispatch``.
+the pair-block ``tile`` (None on the CPU), and on the card the launch's
+``staging`` (``"rows"`` or ``"span"``) and the floats ``staged`` a
+sample a block; the launch plan's decision before it is its sibling
+``kernels.dispatch``. The counter ``kernels.moments_staged`` (label
+``staging``) counts the launches.
 
 ``pairwise_moment_sums_plain`` is the kernel's plain-torch version: the
 same split plan, the same 128-wide sample sub-sums, the same fixed order
@@ -62,6 +70,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 from . import build
@@ -74,6 +83,7 @@ ACCUM_CHUNK = 128  # samples per sub-sum, as in the reference
 # blocks, about 4.8 per SM of a 132-SM H100.
 N_SPLIT = 128
 TILES = (4, 2, 1)  # pair-block edges the kernel is built for
+THREADS = 128  # threads, and so pair blocks, a block of the kernel
 # The tile choice asks for this many threads per SM over the whole grid
 # (8 warps) before it takes a larger pair block: of the thresholds that
 # ``tile_sweep`` times on an H100 over the fit paths' widths, the one with
@@ -178,9 +188,29 @@ def tile_for(rows: int, d: int, n_z: int, sms: int = H100_SMS,
     return TILES[-1]
 
 
+def staged_columns(d: int, tile: int):
+    """(staging, floats) a block of the kernel stages a sample, at width
+    ``d`` and pair-block edge ``tile``: the launcher's choice.
+
+    A block's ``THREADS`` pair blocks run row-major over the
+    ceil(d / tile) of a row block. Up to ``THREADS`` of them a row block,
+    a block covers whole rows of pair blocks and stages whole sample rows
+    (``"rows"``: d floats padded to 4). Past that it covers one or two
+    row blocks and stages only their columns (``"span"``): the x_j span,
+    <= THREADS * tile columns in two pieces where it wraps into the next
+    row block, each padded to 4 floats, and the <= 2 * tile x_i columns
+    padded to 4; ``floats`` is the most any block stages, the row stride
+    of its stage buffers (the kernel's ``span_ld``): 520 at tile 4."""
+    if -(-d // tile) <= THREADS:
+        return "rows", -(-d // 4) * 4
+    pieces = -(-(THREADS * tile) // 4) * 4 + (4 if tile % 4 else 0)
+    return "span", pieces + -(-(2 * tile) // 4) * 4
+
+
 def stage_for(d: int) -> int:
     """Samples per shared-memory stage: the largest divisor of 128 up to
-    32 whose two buffers of rows (padded to 4 floats) fit STAGE_BYTES."""
+    32 whose two buffers of ``d``-float rows (padded to 4) fit
+    STAGE_BYTES; ``d`` is the staged width (:func:`staged_columns`)."""
     ld = -(-d // 4) * 4
     for n in (32, 16, 8, 4, 2):
         if 2 * n * ld * 4 <= STAGE_BYTES:
@@ -266,7 +296,8 @@ def _kernel_lib():
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     lib.pairwise_moment_reduce.restype = ctypes.c_int
     lib.pairwise_moment_reduce.argtypes = [
@@ -282,9 +313,10 @@ MAX_BATCH = 65535  # the grid's y extent
 
 def _launch_sums(x_std, c, row0, rows, slabs, scale, tile):
     """One launch of the partials kernel, with pair blocks of edge
-    ``tile``, and one of the reduce kernel over x_std (m, d) or a batch
-    (b, m, d) cut by the :class:`SlabPlan` ``slabs``; sums of shape
-    (rows, d) or (b, rows, d)."""
+    ``tile`` and the staging of :func:`staged_columns`, and one of the
+    reduce kernel over x_std (m, d) or a batch (b, m, d) cut by the
+    :class:`SlabPlan` ``slabs``; sums of shape (rows, d) or (b, rows,
+    d)."""
     if tile not in TILES:
         raise ValueError(f"pair-block edge {tile} not in {TILES}")
     if x_std.dtype != torch.float32 or c.dtype != torch.float32:
@@ -298,6 +330,7 @@ def _launch_sums(x_std, c, row0, rows, slabs, scale, tile):
     if not 1 <= b <= MAX_BATCH:
         raise ValueError(f"batch of {b} outside [1, {MAX_BATCH}]")
     d = x_std.shape[-1]
+    staging, staged = staged_columns(d, tile)
     lib = _kernel_lib()
     with torch.cuda.device(x_std.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -309,10 +342,12 @@ def _launch_sums(x_std, c, row0, rows, slabs, scale, tile):
             x_std.data_ptr(), c.data_ptr(), part1.data_ptr(),
             part2.data_ptr(), d, row0, rows, slabs.slab, slabs.n_full,
             slabs.full_splits, slabs.full_per, slabs.tail, slabs.tail_splits,
-            slabs.tail_per, tile, stage_for(d), b, stream,
+            slabs.tail_per, tile, int(staging == "span"), stage_for(staged),
+            b, stream,
         )
         if err:
             raise RuntimeError(f"pairwise_moment_partials: CUDA error {err}")
+        obs_metrics.inc("kernels.moments_staged", staging=staging)
         err = lib.pairwise_moment_reduce(
             part1.data_ptr(), part2.data_ptr(), out1.data_ptr(),
             out2.data_ptr(), rows * d, slabs.n_full, slabs.full_splits,
@@ -339,13 +374,16 @@ def _plan_tile(op, shape, x_std, tune, plan, chunk=None) -> int:
 
 def _moments_span(op, x_std, rows, tile=None):
     """The ``kernels.moments`` span of one wrapper call; its attributes
-    are built only when telemetry is on."""
+    are built only when telemetry is on, the staging only for a launch
+    (a ``tile``)."""
     if not obs_trace.enabled():
         return obs_trace.span("kernels.moments")
     m, d = x_std.shape[-2:]
     b = x_std.shape[0] if x_std.dim() == 3 else 1
-    return obs_trace.span("kernels.moments", op=op, shape=(b, m, d),
-                          rows=rows, tile=tile)
+    attrs = dict(op=op, shape=(b, m, d), rows=rows, tile=tile)
+    if tile is not None:
+        attrs["staging"], attrs["staged"] = staged_columns(d, tile)
+    return obs_trace.span("kernels.moments", **attrs)
 
 
 def pairwise_moments(x_std, c, *, n_split=None, tune="cache", plan=None):

@@ -173,6 +173,20 @@ def test_auto_strategy_falls_back_to_loop_on_memory(monkeypatch):
         bootstrap.bootstrap_lingam(gt.data, strategy="sometimes", **kw)
 
 
+@pytest.mark.parametrize("n,m,d", [(32, 4000, 487), (8, 2048, 964)])
+def test_vmap_peak_model_covers_the_orderings_peak(n, m, d):
+    """The card's peak model bounds what is live in the ordering's B1
+    launch at full width: the two split partials, three float32 (n, m, d)
+    stacks (resamples, standardized, residualized), the correlation, B1's
+    two sums and the float64 gram. At (32, 4000, 487) an H100 measured
+    2,843,765,248 bytes of peak (torch.cuda.max_memory_allocated above the
+    base), these buffers at the second step's width."""
+    n_z = pairwise_stats.slab_plan(m).n_z
+    live = (2 * 4 * n * n_z * d * d + 3 * 4 * n * m * d + 3 * 4 * n * d * d
+            + 8 * n * d * d)
+    assert live <= bootstrap.vmap_peak_bytes(n, m, d) <= 1.5 * live
+
+
 def test_resolve_config_matches_reference():
     model = DirectLiNGAM(prune_method="adaptive_lasso", prune_threshold=0.05,
                          prune_kwargs={"lam": 0.02}, compaction="staged",

@@ -10,7 +10,9 @@ Skips without a card. Tolerances: off-diagonal moments within atol 2e-6
 (B3), the reference's own kernel tolerances; repeat launches
 bit-identical, and bit-identical across buffer widths, tile shapes, the
 slab-structured launch against per-slab launches, and a batched launch
-against the launches on each element. Every pair-block candidate of the
+against the launches on each element; past 512 columns at 4 x 4 (a
+block's span staged, not whole rows) bit-identical to the same launch
+made to stage whole rows. Every pair-block candidate of the
 dispatcher's search gives the heuristic plan's sums bit for bit. The
 bootstrap's two strategies on the card: equal edge probabilities,
 coefficients within 1e-5. Total effects and impulse responses on the card
@@ -114,6 +116,133 @@ def test_cuda_kernel_is_width_and_tile_invariant(cuda_device, monkeypatch, m,
                             lambda *a, t=tile, **k: t)
         t1, t2 = pairwise_stats.pairwise_moments(xs, c)
         assert torch.equal(t1, f1) and torch.equal(t2, f2), tile
+
+
+# B1 across the staging boundary at 8,192 rows: up to 512 columns a 4 x 4
+# launch stages whole rows, past that each block's span; 513, 601, 1,027
+# and 2,047 leave d % 4 != 0, and every width past 512 wraps some spans
+# into the next row block.
+SPAN_WIDTHS = (512, 513, 601, 964, 1027, 2047)
+
+
+@pytest.fixture(scope="module")
+def wide_input():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return _standardized(8192, 2048, torch.device("cuda", 0))
+
+
+def _pinned(op, tile):
+    return registry.Plan(op, "cuda-pair-tile", "cuda", tile=tile)
+
+
+def _whole_rows(monkeypatch):
+    """Make every launch stage whole sample rows, at any width."""
+    monkeypatch.setattr(pairwise_stats, "staged_columns",
+                        lambda d, tile: ("rows", -(-d // 4) * 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", pairwise_stats.TILES)
+def test_cuda_span_staging_equals_whole_rows(wide_input, monkeypatch, tile):
+    """Each T forced: B1 on the leading columns of an (8,192, 2,048) input
+    gives the full launch's top-left block, at widths on both sides of
+    the staging boundary, and the same bits as a launch that stages
+    whole rows."""
+    xs, c = wide_input
+    plan = _pinned("pairwise_moments", tile)
+    f1, f2 = pairwise_stats.pairwise_moments(xs, c, plan=plan)
+    for w in (*SPAN_WIDTHS, 2048):
+        xw, cw = xs[:, :w].contiguous(), c[:w, :w].contiguous()
+        g1, g2 = pairwise_stats.pairwise_moments(xw, cw, plan=plan)
+        assert torch.equal(g1, f1[:w, :w]) and torch.equal(g2, f2[:w, :w]), w
+        with monkeypatch.context() as mp:
+            _whole_rows(mp)
+            r1, r2 = pairwise_stats.pairwise_moments(xw, cw, plan=plan)
+        assert torch.equal(g1, r1) and torch.equal(g2, r2), w
+
+
+@pytest.mark.gpu
+def test_cuda_span_staging_in_a_batch(wide_input, monkeypatch):
+    """A batch of 2 at width 1,027 (the leading and the trailing 1,027
+    columns): each element the full launch's block and its own launch's
+    bits, spans or whole rows."""
+    xs, c = wide_input
+    w = 1027
+    xb = torch.stack([xs[:, :w], xs[:, -w:]]).contiguous()
+    cb = torch.stack([c[:w, :w], c[-w:, -w:]]).contiguous()
+    f1, f2 = pairwise_stats.pairwise_moments(xs, c)
+    g1, g2 = pairwise_stats.pairwise_moments(xb, cb)
+    assert torch.equal(g1[0], f1[:w, :w]) and torch.equal(g2[0], f2[:w, :w])
+    assert torch.equal(g1[1], f1[-w:, -w:]) and torch.equal(g2[1],
+                                                            f2[-w:, -w:])
+    for k in range(2):
+        s1, s2 = pairwise_stats.pairwise_moments(xb[k], cb[k])
+        assert torch.equal(g1[k], s1) and torch.equal(g2[k], s2), k
+    _whole_rows(monkeypatch)
+    r1, r2 = pairwise_stats.pairwise_moments(xb, cb)
+    assert torch.equal(g1, r1) and torch.equal(g2, r2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", pairwise_stats.TILES)
+def test_cuda_span_staging_of_row_tiles(wide_input, monkeypatch, tile):
+    """B2 row tiles past row 0 at d = 1,027 (a tile of 300 rows and a
+    ragged one of 7 at the end): the full width's rows, and the bits of a
+    launch that stages whole rows."""
+    xs, c = wide_input
+    w = 1027
+    xw, cw = xs[:, :w].contiguous(), c[:w, :w].contiguous()
+    plan = _pinned("pairwise_moment_sums_rows", tile)
+    for row0, rows in ((100, 300), (1020, 7)):
+        g1, g2 = pairwise_stats.pairwise_moment_sums_rows(xw, cw, row0, rows,
+                                                          plan=plan)
+        f1, f2 = pairwise_stats.pairwise_moment_sums_rows(xs, c, row0, rows,
+                                                          plan=plan)
+        assert torch.equal(g1, f1[:, :w]) and torch.equal(g2, f2[:, :w])
+        with monkeypatch.context() as mp:
+            _whole_rows(mp)
+            r1, r2 = pairwise_stats.pairwise_moment_sums_rows(
+                xw, cw, row0, rows, plan=plan)
+        assert torch.equal(g1, r1) and torch.equal(g2, r2), (row0, rows)
+
+
+@pytest.mark.gpu
+def test_cuda_span_staging_over_slabs(wide_input, monkeypatch):
+    """B2 over 256-row slabs at d = 600: the per-slab launches added in
+    order, and the bits of a launch that stages whole rows."""
+    xs, c = wide_input
+    w, slab = 600, 256
+    xw, cw = xs[:, :w].contiguous(), c[:w, :w].contiguous()
+    plan = _pinned("pairwise_moment_sums_chunked", 4)
+    assert pairwise_stats.staged_columns(w, 4)[0] == "span"
+    s1, s2 = pairwise_stats.pairwise_moment_sums_slabs(xw, cw, slab,
+                                                       plan=plan)
+    t1 = t2 = None
+    for k0 in range(0, xw.shape[0], slab):
+        u1, u2 = pairwise_stats.pairwise_moment_sums_rows(
+            xw[k0:k0 + slab], cw, 0, w,
+            plan=_pinned("pairwise_moment_sums_rows", 4))
+        t1, t2 = (u1, u2) if t1 is None else (t1 + u1, t2 + u2)
+    assert torch.equal(s1, t1) and torch.equal(s2, t2)
+    _whole_rows(monkeypatch)
+    r1, r2 = pairwise_stats.pairwise_moment_sums_slabs(xw, cw, slab,
+                                                       plan=plan)
+    assert torch.equal(s1, r1) and torch.equal(s2, r2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [601, 1027])
+def test_cuda_span_staging_matches_plain_version(cuda_device, d):
+    """Widths that stage spans against the plain version, atol 2e-6."""
+    xs, c = _standardized(1000, d, cuda_device)
+    assert pairwise_stats.staged_columns(d, 4)[0] == "span"
+    k1, k2 = pairwise_stats.pairwise_moments(xs, c)
+    p1, p2 = pairwise_stats.pairwise_moment_sums_plain(xs, c)
+    inv_m = float(np.float32(1.0 / 1000))
+    mask = ~torch.eye(d, dtype=torch.bool, device=cuda_device)
+    for got, want in ((k1, p1 * inv_m), (k2, p2 * inv_m)):
+        assert (got - want)[mask].abs().max().item() <= ATOL
 
 
 @pytest.mark.gpu

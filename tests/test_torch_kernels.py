@@ -200,6 +200,97 @@ def test_stage_samples_by_width(d, stage):
     assert got == 1 or 2 * got * ld * 4 <= pairwise_stats.STAGE_BYTES
 
 
+@pytest.mark.parametrize("d,tile", [(100, 4), (487, 4), (512, 4), (256, 2),
+                                    (56, 2), (128, 1), (8, 1), (2, 1)])
+def test_whole_rows_staged_up_to_a_block_of_pair_blocks_a_row(d, tile):
+    """Up to ``THREADS`` pair blocks a row block (d <= 512 at T = 4, 256
+    at T = 2, 128 at T = 1), a block stages whole sample rows, padded to
+    4 floats: the launches of cells 1-4 and the streams."""
+    assert pairwise_stats.staged_columns(d, tile) == ("rows", -(-d // 4) * 4)
+
+
+def _block_spans(d, rows, tile):
+    """(la, lb, nc) of every block of a span launch, as the kernel cuts
+    them (``csrc/pairwise_moments.cu`` ``block_span``): the x_j piece in
+    the first row block, the wrapped piece in the next, the x_i
+    columns."""
+    k = pairwise_stats.THREADS
+    nbj = -(-d // tile)
+    nb = -(-rows // tile) * nbj
+    first = np.arange(0, nb, k)
+    last = np.minimum(first + k, nb) - 1
+    bi0, bi1 = first // nbj, last // nbj
+    a0 = (first - bi0 * nbj) * tile
+    end = np.minimum((last - bi1 * nbj + 1) * tile, d)
+    wrap = bi1 > bi0
+    return (np.where(wrap, d - a0, end - a0), np.where(wrap, end, 0),
+            (bi1 - bi0 + 1) * tile)
+
+
+@pytest.mark.parametrize("tile", pairwise_stats.TILES)
+@pytest.mark.parametrize("d,rows", [(513, 513), (601, 601), (964, 964),
+                                    (1027, 1027), (2047, 2047), (2048, 2048),
+                                    (1027, 7), (600, 3)])
+def test_span_staged_past_a_block_of_pair_blocks_a_row(d, rows, tile):
+    """Past ``THREADS`` pair blocks a row block a block stages its x_j span
+    (two pieces where it wraps, each at a 16-byte-aligned offset) and its
+    x_i columns: every block's layout fits the staged width, 520 floats
+    at T = 4, and the stage count from it divides 128 and keeps both
+    buffers within ``STAGE_BYTES``."""
+    staging, width = pairwise_stats.staged_columns(d, tile)
+    assert staging == "span"
+    assert width == {4: 520, 2: 264, 1: 136}[tile]
+    la, lb, nc = _block_spans(d, rows, tile)
+    assert (la > 0).all() and (la + lb <= pairwise_stats.THREADS * tile).all()
+    assert (lb < d).all() and (nc <= 2 * tile).all()
+    b_off = -(-la // 4) * 4
+    c_off = b_off + -(-lb // 4) * 4
+    assert (c_off + nc <= width).all()
+    n = pairwise_stats.stage_for(width)
+    assert pairwise_stats.ACCUM_CHUNK % n == 0
+    assert 2 * n * width * 4 <= pairwise_stats.STAGE_BYTES
+    assert n == {4: 8, 2: 16, 1: 32}[tile]
+
+
+@pytest.mark.parametrize("m,d,batch,slab,spans", [
+    (1_000_000, 100, 1, None, 0), (3999, 487, 1, None, 0),
+    (3999, 487, 32, None, 0), (2048, 487, 1, 256, 0),
+    (65_164, 964, 1, None, 452), (8192, 2048, 1, None, 1536)])
+def test_span_launches_of_each_cells_ordering(m, d, batch, slab, spans):
+    """Over one ordering's steps, with the heuristic pair block at each
+    width, the launches that stage a span: none in cells 1-4 and the
+    streams, widths 964 .. 513 in the gene cell and 2,048 .. 513 in the
+    wide cell."""
+    from repro_torch.core import ordering
+
+    n_z = pairwise_stats.slab_plan(m, slab).n_z * batch
+    got = sum(steps for w, steps in ordering.order_schedule(d)
+              if pairwise_stats.staged_columns(
+                  w, pairwise_stats.tile_for(w, w, n_z))[0] == "span")
+    assert got == spans
+
+
+def test_committed_plans_stage_whole_rows_to_their_bucket_width():
+    """Every committed tuned plan of B1/B2 stages whole rows at the widest
+    width of its bucket (``d512``: 257-512), so a tuned T never turns a
+    cell's launch into a span."""
+    import json
+    import re
+    from pathlib import Path
+
+    path = (Path(pairwise_stats.__file__).parent / "tune"
+            / "default_plans.json")
+    entries = json.loads(path.read_text())["entries"]
+    seen = 0
+    for key, entry in entries.items():
+        if entry.get("tile"):
+            width = int(re.search(r"/d(\d+)\.", key).group(1))
+            assert pairwise_stats.staged_columns(width, entry["tile"])[0] == (
+                "rows"), key
+            seen += 1
+    assert seen >= 10
+
+
 def test_build_key_covers_included_headers(tmp_path):
     """A changed header under csrc/ changes every source's build key, so
     a stale library is never loaded; nvcc is not needed to see it."""
